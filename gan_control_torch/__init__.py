@@ -1,0 +1,16 @@
+"""gan_control_torch — PyTorch/CUDA port of gan_control_tpu for NVIDIA Hopper.
+
+Same layout and public API as the JAX package (NHWC images, latents
+``[B, 512]`` / ``[B, L, 512]``, the model-directory and msgpack checkpoint
+formats), with PyTorch idiom inside: ``nn.Module``s, an explicit ``device``
+argument, and ``torch.Generator``s in place of ``jax.random`` keys.
+
+The TPU kernels on the controlled-generation path are kernels written for
+Hopper (``ops/kernels.py``, ``csrc/``): ``fused_bias_act`` in Triton and
+``blur2x_up`` in CUDA C++. On a CPU tensor each wrapper runs its plain
+PyTorch version; on a CUDA tensor it launches the kernel.
+
+The package imports neither JAX nor ``gan_control_tpu``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,61 @@
+"""Model construction from the JSON config schema (port of
+``gan_control_tpu/models/factory.py``: ``build_group_spec`` and
+``build_generator``)."""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import torch
+
+from gan_control_torch.latent.groups import GroupSpec
+from gan_control_torch.models.blocks import init_params_
+from gan_control_torch.models.generator import Generator
+from gan_control_torch.utils.device import resolve_device
+
+
+def build_group_spec(config: Mapping[str, Any]) -> GroupSpec | None:
+    mc = config["model_config"]
+    tc = config["training_config"]
+    if mc.get("vanilla", False):
+        return None
+    return GroupSpec.from_config(
+        tc["sub_groups_dict"], tc["mini_batch"], style_dim=mc.get("latent_size", 512)
+    )
+
+
+def build_generator(
+    config: Mapping[str, Any],
+    spec: GroupSpec | None,
+    device: str | torch.device | None = None,
+    dtype: torch.dtype | None = None,
+    seed: int = 0,
+) -> Generator:
+    """The generator of ``config`` on ``device`` (CUDA unless asked
+    otherwise), with parameters drawn as the JAX initialisers draw them from
+    ``seed``. ``mixed_precision: true`` runs synthesis in bf16 (the mapping
+    stays f32); ``dtype`` overrides the synthesis type."""
+    device = resolve_device(device)
+    mc = config["model_config"]
+    if mc.get("marge_fc", False):
+        raise NotImplementedError("the marge mapping is not ported yet")
+    size = mc["size"]
+    model_mode = "896" if size == 896 else "normal"
+    if size == 896:
+        size = 1024  # the '896' mode runs the 1024 ladder with crops
+    if dtype is None:
+        dtype = torch.bfloat16 if mc.get("mixed_precision", False) else torch.float32
+    model = Generator(
+        size=size,
+        style_dim=mc.get("latent_size", 512),
+        n_mlp=mc.get("n_mlp", 8),
+        channel_multiplier=mc.get("channel_multiplier", 2.0),
+        max_channels=mc.get("max_channels", 512),
+        out_channels=mc.get("img_channels", 3),
+        split_fc=mc.get("split_fc", False),
+        fc_groups=None if spec is None else spec.fc_dims(),
+        model_mode=model_mode,
+        noise_mode=mc.get("g_noise_mode", "normal"),
+        dtype=dtype,
+    )
+    return init_params_(model, seed).to(device)

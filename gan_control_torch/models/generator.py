@@ -1,0 +1,269 @@
+"""StyleGAN2-class Generator with a disentangled (per-attribute) mapping
+network. Port of ``gan_control_tpu/models/generator.py``: channel table,
+regular and split mappings, constant input + conv1 + to_rgb1 + one
+(upsample conv, conv, ToRGB-skip) triple per resolution, noise modes,
+truncation, style mixing by ``inject_index`` and the '896' mode.
+
+PyTorch-side differences: injection noise is either an explicit list or
+drawn from an explicit ``torch.Generator``; a missing ``inject_index`` is
+drawn from that generator (midpoint without one). Synthesis runs in
+``dtype`` (bf16 under ``mixed_precision``) while the mapping stays f32.
+The marge and VAE mappings are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from gan_control_torch.models.blocks import (
+    ConstantInput,
+    EqualLinear,
+    StyledConv,
+    ToRGB,
+    pixel_norm,
+)
+
+
+def channel_table(channel_multiplier: float = 2.0, max_channels: int = 512) -> dict[int, int]:
+    """Per-resolution channel widths, capped at ``max_channels``."""
+    table = {
+        4: 512,
+        8: 512,
+        16: 512,
+        32: 512,
+        64: int(256 * channel_multiplier),
+        128: int(128 * channel_multiplier),
+        256: int(64 * channel_multiplier),
+        512: int(32 * channel_multiplier),
+        1024: int(16 * channel_multiplier),
+        1344: int(16 * channel_multiplier),
+    }
+    return {k: min(v, max_channels) for k, v in table.items()}
+
+
+class RegularMapping(nn.Module):
+    """PixelNorm + n_mlp equalized MLP layers ``fc{i}``."""
+
+    def __init__(self, style_dim: int, n_mlp: int, lr_mlp: float = 0.01):
+        super().__init__()
+        self.n_mlp = n_mlp
+        for i in range(n_mlp):
+            self.add_module(
+                f"fc{i}",
+                EqualLinear(style_dim, style_dim, lr_mul=lr_mlp, activation="fused_lrelu"),
+            )
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        x = pixel_norm(z)
+        for i in range(self.n_mlp):
+            x = getattr(self, f"fc{i}")(x)
+        return x
+
+
+class GroupMapping(nn.Module):
+    """Per-attribute MLP stack: group_size -> mid_dim -> ... -> group_size."""
+
+    def __init__(self, out_dim: int, n_mlp: int, mid_dim: int = 256, lr_mlp: float = 0.01):
+        super().__init__()
+        self.n_mlp = n_mlp
+        in_dim = out_dim
+        for i in range(n_mlp):
+            if i == 0:
+                feats = mid_dim if n_mlp > 1 else out_dim
+            elif i < n_mlp - 1:
+                feats = mid_dim
+            else:
+                feats = out_dim
+            self.add_module(
+                f"fc{i}",
+                EqualLinear(in_dim, feats, lr_mul=lr_mlp, activation="fused_lrelu"),
+            )
+            in_dim = feats
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        x = pixel_norm(z)
+        for i in range(self.n_mlp):
+            x = getattr(self, f"fc{i}")(x)
+        return x
+
+
+class SplitMapping(nn.Module):
+    """One GroupMapping per latent group, each on its slice of z,
+    concatenated back to style_dim. ``fc_groups``: ((name, size), ...)."""
+
+    def __init__(self, fc_groups: Sequence[tuple[str, int]], n_mlp: int, lr_mlp: float = 0.01):
+        super().__init__()
+        self.fc_groups = tuple((name, int(size)) for name, size in fc_groups)
+        for name, size in self.fc_groups:
+            self.add_module(name, GroupMapping(size, n_mlp, lr_mlp=lr_mlp))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        outs = []
+        offset = 0
+        for name, size in self.fc_groups:
+            outs.append(getattr(self, name)(z[..., offset : offset + size]))
+            offset += size
+        return torch.cat(outs, dim=-1)
+
+
+class Generator(nn.Module):
+    def __init__(
+        self,
+        size: int,
+        style_dim: int = 512,
+        n_mlp: int = 8,
+        channel_multiplier: float = 2.0,
+        max_channels: int = 512,
+        blur_kernel: tuple = (1, 3, 3, 1),
+        lr_mlp: float = 0.01,
+        out_channels: int = 3,
+        split_fc: bool = False,
+        fc_groups: Sequence[tuple[str, int]] | None = None,
+        model_mode: str = "normal",
+        noise_mode: str = "normal",
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.size = size
+        self.style_dim = style_dim
+        self.model_mode = model_mode
+        self.dtype = dtype
+        channels = channel_table(channel_multiplier, max_channels)
+
+        if split_fc:
+            if not fc_groups:
+                raise ValueError("split_fc requires fc_groups")
+            self.style = SplitMapping(fc_groups, n_mlp, lr_mlp)
+        else:
+            self.style = RegularMapping(style_dim, n_mlp, lr_mlp)
+
+        self.input = ConstantInput(channels[4])
+        self.conv1 = StyledConv(
+            channels[4], channels[4], 3, style_dim, blur_kernel=blur_kernel,
+            noise_mode=noise_mode,
+        )
+        self.to_rgb1 = ToRGB(channels[4], style_dim, out_channels)
+
+        self.convs = nn.ModuleList()
+        self.to_rgbs = nn.ModuleList()
+        in_ch = channels[4]
+        for i in range(3, self.log_size + 1):
+            out_ch = channels[2**i]
+            self.convs.append(
+                StyledConv(in_ch, out_ch, 3, style_dim, upsample=True,
+                           blur_kernel=blur_kernel, noise_mode=noise_mode)
+            )
+            overwrite_padding = None
+            overwrite_negative_padding = None
+            if model_mode == "896" and 2**i == 16:
+                overwrite_padding = 0
+                overwrite_negative_padding = -1
+            # noise_mode reaches conv1 and the upsample convs only; the
+            # second conv of each pair keeps 'normal' injection
+            self.convs.append(
+                StyledConv(out_ch, out_ch, 3, style_dim, blur_kernel=blur_kernel,
+                           overwrite_padding=overwrite_padding)
+            )
+            self.to_rgbs.append(
+                ToRGB(out_ch, style_dim, out_channels, blur_kernel=blur_kernel,
+                      overwrite_negative_padding=overwrite_negative_padding)
+            )
+            in_ch = out_ch
+
+    @property
+    def log_size(self) -> int:
+        return int(math.log2(self.size))
+
+    @property
+    def num_layers(self) -> int:
+        return (self.log_size - 2) * 2 + 1
+
+    @property
+    def n_latent(self) -> int:
+        return self.log_size * 2 - 2
+
+    def map_latent(self, z: torch.Tensor) -> torch.Tensor:
+        """z -> w."""
+        return self.style(z)
+
+    def noise_shapes(self, batch: int = 1) -> list[tuple[int, int, int, int]]:
+        """Injection-noise shapes per layer, NHWC, incl. the '896' 14*2^k ladder."""
+        shapes = [(batch, 4, 4, 1)]
+        for i in range(3, self.log_size + 1):
+            for inter in range(2):
+                if self.model_mode == "896" and (i > 4 or (i == 4 and inter > 0)):
+                    s = 14 * (2 ** (i - 4))
+                else:
+                    s = 2**i
+                shapes.append((batch, s, s, 1))
+        return shapes
+
+    def forward(
+        self,
+        styles: Sequence[torch.Tensor],
+        *,
+        return_latents: bool = False,
+        inject_index: int | None = None,
+        truncation: float = 1.0,
+        truncation_latent: torch.Tensor | None = None,
+        input_is_latent: bool = False,
+        noise: Sequence[torch.Tensor] | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        """Returns (image NHWC in ``dtype``, w+ latent or None)."""
+        if not input_is_latent:
+            styles = [self.map_latent(s) for s in styles]
+
+        if truncation_latent is not None:
+            styles = [truncation_latent + truncation * (s - truncation_latent) for s in styles]
+        elif truncation != 1:
+            raise ValueError("truncation != 1 requires truncation_latent (mean_latent)")
+
+        if len(styles) < 2:
+            if styles[0].ndim < 3:
+                latent = styles[0][:, None, :].expand(-1, self.n_latent, -1)
+            else:
+                latent = styles[0]
+        else:
+            if inject_index is None:
+                if generator is not None:
+                    inject_index = int(torch.randint(
+                        1, self.n_latent, (), generator=generator, device=generator.device
+                    ))
+                else:
+                    inject_index = self.n_latent // 2
+            layer_ids = torch.arange(self.n_latent, device=styles[0].device)[None, :, None]
+            latent = torch.where(layer_ids < inject_index, styles[0][:, None, :], styles[1][:, None, :])
+
+        if noise is None:
+            noise = [None] * self.num_layers
+
+        out = self.input(latent.shape[0]).to(self.dtype)
+        out = self.conv1(out, latent[:, 0], noise[0], generator)
+        skip = self.to_rgb1(out, latent[:, 1])
+
+        i = 1
+        for idx, to_rgb in enumerate(self.to_rgbs):
+            out = self.convs[2 * idx](out, latent[:, i], noise[2 * idx + 1], generator)
+            out = self.convs[2 * idx + 1](out, latent[:, i + 1], noise[2 * idx + 2], generator)
+            skip = to_rgb(out, latent[:, i + 2], skip)
+            i += 2
+
+        return skip, (latent if return_latents else None)
+
+
+def mean_latent(
+    generator_module: Generator, n_latent: int, generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Average w over ``n_latent`` random z drawn from ``generator``: [1, style_dim]."""
+    device = next(generator_module.parameters()).device
+    z = torch.randn(
+        (n_latent, generator_module.style_dim), generator=generator,
+        device=device if generator is None else generator.device,
+    ).to(device)
+    w = generator_module.map_latent(z)
+    return torch.mean(w, dim=0, keepdim=True)

@@ -1,0 +1,14 @@
+"""L0 ops: FIR resampling, fused bias+activation, modulated conv, and the
+Hopper kernels behind them (``ops/kernels.py``)."""
+
+from gan_control_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
+from gan_control_torch.ops.modulated_conv import modulated_conv2d
+from gan_control_torch.ops.upfirdn2d import make_kernel, upsample_2x
+
+__all__ = [
+    "fused_leaky_relu",
+    "make_kernel",
+    "modulated_conv2d",
+    "scaled_leaky_relu",
+    "upsample_2x",
+]

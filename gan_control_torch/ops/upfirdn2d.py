@@ -1,0 +1,109 @@
+"""upfirdn2d — upsample, pad, FIR filter, downsample. NHWC.
+
+Port of ``gan_control_tpu/ops/upfirdn2d.py``. Semantics:
+
+    1. zero-stuff each pixel with (up-1) trailing zeros along H and W
+    2. zero-pad by (pad0, pad1) per axis; negative pads crop
+    3. convolve (true convolution) with a 2-D FIR filter, "valid"
+    4. keep every ``down``-th sample starting at 0
+
+The general case is a plain depthwise ``F.conv2d`` on a zero-stuffed,
+padded input, as the JAX package left it to XLA. :func:`upsample_2x`
+dispatches on its static tap tuple: the 4-tap ``(1, 3, 3, 1)`` factor-2
+case goes to the ``blur2x_up`` kernel (``ops/kernels.py``), every other
+case to the depthwise conv.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from gan_control_torch.ops import kernels
+
+DEFAULT_TAPS = (1, 3, 3, 1)
+
+
+def make_kernel(k, device=None) -> torch.Tensor:
+    """Normalized 2-D FIR kernel (float32) from a 1-D or 2-D tap list."""
+    k = torch.as_tensor(k, dtype=torch.float32, device=device)
+    if k.ndim == 1:
+        k = k[None, :] * k[:, None]
+    return k / k.sum()
+
+
+def upfirdn2d(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    up: int = 1,
+    down: int = 1,
+    pad: tuple[int, int] = (0, 0),
+) -> torch.Tensor:
+    """Upsample-FIR-downsample on an NHWC tensor; ``pad`` applies to both
+    H and W and may be negative. Output size
+    ``(H*up + pad0 + pad1 - kh) // down + 1``."""
+    return upfirdn2d_native(x, kernel, (up, up), (down, down), (pad[0], pad[1], pad[0], pad[1]))
+
+
+def upfirdn2d_native(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    up: tuple[int, int],
+    down: tuple[int, int],
+    pad: tuple[int, int, int, int],
+) -> torch.Tensor:
+    """Full-signature upfirdn: separate x/y factors, ``pad`` is
+    (pad_x0, pad_x1, pad_y0, pad_y1)."""
+    up_x, up_y = up
+    down_x, down_y = down
+    pad_x0, pad_x1, pad_y0, pad_y1 = pad
+    n, h, w, c = x.shape
+    kh, kw = kernel.shape
+
+    out = x.reshape(n, h, 1, w, 1, c)
+    out = F.pad(out, (0, 0, 0, up_x - 1, 0, 0, 0, up_y - 1))
+    out = out.reshape(n, h * up_y, w * up_x, c)
+    out = F.pad(out, (0, 0, max(pad_x0, 0), max(pad_x1, 0), max(pad_y0, 0), max(pad_y1, 0)))
+    out = out[
+        :,
+        max(-pad_y0, 0) : out.shape[1] - max(-pad_y1, 0),
+        max(-pad_x0, 0) : out.shape[2] - max(-pad_x1, 0),
+        :,
+    ]
+    # true convolution == correlation with the flipped kernel, depthwise
+    wk = torch.flip(kernel, (0, 1)).to(device=x.device, dtype=x.dtype)
+    wk = wk[None, None].expand(c, 1, kh, kw)
+    out = F.conv2d(out.permute(0, 3, 1, 2), wk, stride=(down_y, down_x), groups=c)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def upsample_2x(x: torch.Tensor, taps=DEFAULT_TAPS, factor: int = 2) -> torch.Tensor:
+    """FIR upsampling by ``factor`` with gain ``factor**2``.
+
+    ``taps`` is the static 1-D tap tuple (the JAX function takes the
+    normalized 2-D kernel ``make_kernel(taps)``). The 4-tap factor-2 case
+    runs the ``blur2x_up`` kernel."""
+    taps = tuple(taps)
+    if factor == 2 and taps == DEFAULT_TAPS:
+        return kernels.blur2x_up(x, taps)
+    kernel = make_kernel(taps, device=x.device)
+    p = kernel.shape[0] - factor
+    pad0 = (p + 1) // 2 + factor - 1
+    pad1 = p // 2
+    return upfirdn2d(x, kernel * (factor**2), up=factor, down=1, pad=(pad0, pad1))
+
+
+def blur_pad_upsample(kernel_len: int, conv_kernel_size: int, factor: int = 2):
+    """Blur padding after the transposed conv in the modulated upsample path."""
+    p = (kernel_len - factor) - (conv_kernel_size - 1)
+    pad0 = (p + 1) // 2 + factor - 1
+    pad1 = p // 2 + 1
+    return pad0, pad1
+
+
+def blur_pad_downsample(kernel_len: int, conv_kernel_size: int, factor: int = 2):
+    """Blur padding before the strided conv in the modulated downsample path."""
+    p = (kernel_len - factor) + (conv_kernel_size - 1)
+    pad0 = (p + 1) // 2
+    pad1 = p // 2
+    return pad0, pad1
