@@ -1,36 +1,59 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card (an H100:
-the CUDA kernel is built for sm_90a). It exits non-zero, printing no
+the CUDA kernels are built for sm_90a). It exits non-zero, printing no
 result, when there is no card or when the checkout's files are missing.
 
-Phases (none is caught; any failure exits non-zero):
+Phases (none is caught; any failure exits non-zero), each printing its
+seconds:
 
  1. the card's name and power limit, as nvidia-smi reports them;
- 2. build the CUDA kernel library (nvcc) and compile the Triton kernel;
- 3. write an FFHQ-512 controller directory (configs/ffhq.json, the
-    orientation and age heads) at random init in the JAX package's layout,
-    with the port's own msgpack writer, and load it through ``Controller``;
- 4. kernels: at every (shape, dtype) the main path gives each kernel
-    (recorded by module hooks in one warm-up call), in f32 with TF32 off and
-    in bf16, hold the kernel against its plain PyTorch version, and time the
-    kernel, the plain version and, for blur2x_up, one PyTorch call that
-    computes the same function (a depthwise ``conv_transpose2d``);
- 5. main path: one ``gen_batch_by_controls(batch_size=8, orientation=...,
-    age=...)`` in the config's bf16 synthesis, with the kernel launch
-    counters set to 0 just before and read just after; then the median of a
-    few warm calls, and the device time by kernel of one more (profiler);
- 6. card against CPU: the same directory at batch 1 in f32 with TF32 off,
-    the card's kernels against the port's plain CPU path on the same latent
-    and noise;
- 7. one JSON line of per-kernel numbers, then the result line.
+ 2. build the CUDA kernel libraries (one nvcc per source, all at once) and
+    compile the Triton kernels;
+ 3. inference: write an FFHQ-512 controller directory (configs/ffhq.json,
+    the orientation and age heads) at random init in the JAX package's
+    layout, with the port's own msgpack writer, and load it through
+    ``Controller``;
+ 4. inference kernels: at every (shape, dtype) the generation path gives
+    ``fused_bias_act`` and ``blur2x_up`` (module hooks in one warm-up call),
+    in f32 with TF32 off and in bf16, each kernel against its plain PyTorch
+    version, and the times of the kernel, the plain version and, for
+    blur2x_up, a depthwise ``conv_transpose2d``;
+ 5. inference main path: one ``gen_batch_by_controls(batch_size=8, ...)`` in
+    bf16 with the launch counters set to 0 just before and read just after;
+    the median of a few warm calls; the device time by kernel (profiler);
+ 6. inference card against CPU: batch 1 f32, TF32 off, same latent and noise;
+ 7. training main path: ``GeneratorTrainer`` on configs/ffhq.json (FFHQ-512,
+    batch 16, bf16 synthesis and D pyramid, f32 parameters) with the
+    synthetic loader, results under build/; ``dry_run()`` then ``train(5)``
+    (iterations 0 and 4 take the path-length step, 0 the R1 step) with the
+    counters set to 0 just before ``train(5)`` and read just after, checked
+    per step kind against counts derived from the modules; finite losses,
+    every parameter of G and D moved; median ms per step kind and per
+    iteration, peak memory; the saved ``g_ema`` generates through
+    ``Inference``; the device time by kernel of one more iteration;
+ 8. training kernels: every (kernel, shape, dtype, static arguments) that
+    ``train(5)`` launched (recorded by hooks on the launchers), in f32 with
+    TF32 off and in bf16: the forward and the backward (autograd of a seeded
+    projection) against the plain version; the second order at one shape
+    each for fused_bias_act, blur_sep and the blur2x_up/blur2x_down pair;
+    the times of the kernel, the plain version and the PyTorch call that
+    computes the same function (depthwise ``conv2d`` for blur_sep and, with
+    stride 2, for blur2x_down), and each kernel's bound;
+ 9. training card against CPU: iteration 0 of a size-32 model (f32, TF32
+    off) from the same parameters and explicit random inputs, each step
+    kind's losses and gradients;
+10. one JSON line of per-kernel numbers over ``train(5)``, then the card's
+    line and the result line.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -47,23 +70,34 @@ import torch.nn.functional as F
 REPO = Path(__file__).resolve().parent
 CONFIGS = REPO / "gan_control_tpu" / "configs"
 BATCH = 8
+TRAIN_ITERS = 5
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-REPLACES = {
-    "fused_bias_act": "gan_control_tpu/ops/pallas_kernels.py:86",
-    "blur2x_up": "gan_control_tpu/ops/pallas_kernels.py:215",
+PALLAS = "gan_control_tpu/ops/pallas_kernels.py"
+# name -> (route, source, the TPU kernel it replaces)
+KERNELS = {
+    "fused_bias_act": ("triton", "gan_control_torch/csrc/fused_bias_act.py", f"{PALLAS}:86"),
+    # the gradient of the TPU kernel, which the JAX package left to XLA's autodiff
+    "fused_bias_act_grad": ("triton", "gan_control_torch/csrc/fused_bias_act.py", f"{PALLAS}:86"),
+    "blur2x_up": ("cuda", "gan_control_torch/csrc/blur2x_up.cu", f"{PALLAS}:215"),
+    "blur2x_down": ("cuda", "gan_control_torch/csrc/blur2x_down.cu", f"{PALLAS}:149"),
+    "blur_sep": ("cuda", "gan_control_torch/csrc/blur_sep.cu", f"{PALLAS}:318"),
 }
-SOURCES = {
-    "fused_bias_act": ("triton", "gan_control_torch/csrc/fused_bias_act.py"),
-    "blur2x_up": ("cuda", "gan_control_torch/csrc/blur2x_up.cu"),
-}
+INFER_KERNELS = ("fused_bias_act", "blur2x_up")
 # kernel vs plain version, relative to max|plain|: f32 is the same f32
 # arithmetic in another order; bf16 may round across one bf16 step (2**-7)
 KERNEL_RTOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-7}
+# gradients through a kernel's autograd Function vs autograd of the plain
+# version: the backward kernels sum in another order than autograd's ops
+GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-6}
 # card vs CPU through the whole f32 generator: cuDNN and the CPU convs sum in
 # other orders over up to 4608 terms per output, 16 layers deep
 PARITY_RTOL = 1e-3
+# card vs CPU training gradients (f32, TF32 off), per tensor against its
+# largest entry: the same sums in other orders through up to two backward
+# passes of a size-32 G and D
+TRAIN_PARITY_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -75,7 +109,22 @@ def fail(msg: str) -> None:
     sys.exit(2)
 
 
-def cuda_ms(fn, min_total_ms: float = 50.0) -> float:
+class Phase:
+    """Prints a phase's seconds when it ends."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            log(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s")
+
+
+def cuda_ms(fn, min_total_ms: float = 30.0) -> float:
     """Mean device time of ``fn`` over back-to-back launches (CUDA events)."""
     fn()
     torch.cuda.synchronize()
@@ -93,19 +142,51 @@ def cuda_ms(fn, min_total_ms: float = 50.0) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(name: str, shape, dtype) -> tuple[float, str]:
-    """Least time (ms) for one call: bytes (each input read once, each output
-    written once) over peak bandwidth vs operations over the f32 peak."""
+def bound(name: str, shape, dtype, args=()) -> tuple[float, str]:
+    """Least time (ms) for one launch: bytes (each input read once, each
+    output written once) over peak bandwidth vs float operations over the
+    f32 peak (the kernels compute in f32 whatever the storage)."""
     numel = int(np.prod(shape))
     item = torch.tensor([], dtype=dtype).element_size()
+    c = shape[-1]
     if name == "fused_bias_act":
-        nbytes = 2 * numel * item + shape[-1] * 4
-        ops = 4 * numel  # add, compare-select, two multiplies
-    else:
-        nbytes = 5 * numel * item  # read x, write 4x
-        ops = 8 * 4 * numel  # 4 multiply-adds per output element
+        nbytes, ops = 2 * numel * item + c * 4, 4 * numel  # add, compare-select, 2 multiplies
+    elif name == "fused_bias_act_grad":
+        # read g and x, write dx; the bias vectors; add, compare-select, add, multiply
+        nbytes, ops = 3 * numel * item + (3 if args[0] else 2) * c * 4, 4 * numel
+    elif name == "blur2x_up":
+        nbytes, ops = 5 * numel * item, 8 * 4 * numel  # 4x the input out, 4 MACs each
+    elif name == "blur2x_down":
+        nbytes, ops = numel * item * 5 // 4, 2 * 16 * numel // 4  # 16 MACs per output
+    else:  # blur_sep: K MACs per H-pass element ((H_out x W) of them), K per output
+        rt, _, (p0, p1) = args
+        k = len(rt)
+        n, h, w, _ = shape
+        ho, wo = h + p0 + p1 - k + 1, w + p0 + p1 - k + 1
+        nbytes = (numel + n * ho * wo * c) * item
+        ops = 2 * k * n * ho * (w + p0 + p1) * c + 2 * k * n * ho * wo * c
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def new_totals(names) -> dict:
+    return {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                    library_ms=None, launches=0, max_abs_err=0.0) for n in names}
+
+
+def add_to_totals(tot: dict, count: int, t_k: float, t_p: float, t_b: float, by: str,
+                  t_lib: float | None) -> None:
+    tot["ms"] += count * t_k
+    tot["plain_ms"] += count * t_p
+    tot["bound_ms"] += count * t_b
+    tot["bytes_ms" if by == "bytes" else "ops_ms"] += count * t_b
+    if t_lib is not None:
+        tot["library_ms"] = (tot["library_ms"] or 0.0) + count * t_lib
+
+
+# ---------------------------------------------------------------------------
+# inference (the first slice)
+# ---------------------------------------------------------------------------
 
 
 def write_controller_dir(root: Path) -> None:
@@ -173,7 +254,7 @@ def record_kernel_shapes(ctrl, ctl: dict) -> Counter:
     return seen
 
 
-def kernel_phase(shapes: Counter) -> dict:
+def inference_kernel_phase(shapes: Counter) -> dict:
     """Compare and time each kernel at every recorded shape, in f32 and bf16.
     Returns per-kernel totals over one main-path call: times and bounds
     summed over its launches at the path's own dtypes, the worst error."""
@@ -182,8 +263,7 @@ def kernel_phase(shapes: Counter) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    totals = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-                      library_ms=None, launches=0, max_abs_err=0.0) for n in REPLACES}
+    totals = new_totals(INFER_KERNELS)
     for (name, shape, path_dtype), count in sorted(shapes.items(), key=lambda kv: str(kv[0])):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -200,18 +280,18 @@ def kernel_phase(shapes: Counter) -> dict:
                 plain = lambda: kernels.blur2x_up_plain(x)  # noqa: E731
                 library = lambda: F.conv_transpose2d(  # noqa: E731
                     x.permute(0, 3, 1, 2), w, stride=2, padding=1, groups=c)
-            got, want = run().float(), plain().float()
+            with torch.no_grad():
+                got, want = run().float(), plain().float()
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
-            scale = max(1.0, float(want.abs().max()))
-            tol = KERNEL_RTOL[dtype] * scale
+            tol = KERNEL_RTOL[dtype] * max(1.0, float(want.abs().max()))
             ok = err <= tol and bool(torch.isfinite(got).all())
-            t_k, t_p = cuda_ms(run), cuda_ms(plain)
-            t_lib = None
-            if library is not None:
-                lib_out = library().permute(0, 2, 3, 1).float()
-                lib_err = float((lib_out - want).abs().max())
-                t_lib = cuda_ms(library)
+            with torch.no_grad():
+                t_k, t_p = cuda_ms(run), cuda_ms(plain)
+                t_lib = lib_err = None
+                if library is not None:
+                    lib_err = float((library().permute(0, 2, 3, 1).float() - want).abs().max())
+                    t_lib = cuda_ms(library)
             t_b, by = bound(name, shape, dtype)
             log(f"kernel {name} {list(shape)} {str(dtype)[6:]} (x{count} on the path in "
                 f"{str(path_dtype)[6:]}): max_abs_err {err:.3g} (tol {tol:.3g}) "
@@ -221,33 +301,494 @@ def kernel_phase(shapes: Counter) -> dict:
             if not ok:
                 fail(f"{name} disagrees with its plain version at {shape} {dtype}: {err} > {tol}")
             if dtype == path_dtype:
-                tot = totals[name]
-                tot["ms"] += count * t_k
-                tot["plain_ms"] += count * t_p
-                tot["bound_ms"] += count * t_b
-                tot["bytes_ms" if by == "bytes" else "ops_ms"] += count * t_b
-                if t_lib is not None:
-                    tot["library_ms"] = (tot["library_ms"] or 0.0) + count * t_lib
-                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                add_to_totals(totals[name], count, t_k, t_p, t_b, by, t_lib)
+                totals[name]["max_abs_err"] = max(totals[name]["max_abs_err"], err)
     return totals
 
 
-def profile_phase(ctrl, z, ctl: dict, median_ms: float) -> None:
-    """Device time by kernel over one warm main-path call (torch.profiler;
+def profile_phase(label: str, fn, median_ms: float) -> None:
+    """Device time by kernel over one warm call of ``fn`` (torch.profiler;
     the profiled call runs slower than an unprofiled one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ctrl.gen_batch_by_controls(batch_size=BATCH, latent=z, **ctl)
+        fn()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in rows)
-    log(f"profile: device busy {busy:.3f} ms per call in {sum(n for *_, n in rows)} kernels "
+    log(f"profile {label}: device busy {busy:.3f} ms per call in {sum(n for *_, n in rows)} kernels "
         f"= {100 * busy / median_ms:.1f}% of the {median_ms:.2f} ms median call")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:15]:
-        log(f"profile: {ms:8.3f} ms {100 * ms / max(busy, 1e-9):5.1f}% x{n:<4d} {key[:100]}")
+        log(f"profile {label}: {ms:8.3f} ms {100 * ms / max(busy, 1e-9):5.1f}% x{n:<4d} {key[:100]}")
+
+
+def inference_phases(build_root: Path) -> tuple[dict, dict]:
+    """Phases 3-6. Returns (per-kernel totals of one call, main-path counts)."""
+    from gan_control_torch.inference.controller import Controller
+    from gan_control_torch.ops import kernels
+
+    with tempfile.TemporaryDirectory(dir=build_root) as tmp:
+        root = Path(tmp) / "ffhq_controller"
+        with Phase("inference load"):
+            write_controller_dir(root)
+            ctrl = Controller(root)
+            log(f"load: synthesis {ctrl.model.dtype}, heads {sorted(ctrl.fc_controls)}")
+            ctl = controls(BATCH, 1)
+            shapes = record_kernel_shapes(ctrl, ctl)
+            expected = {n: sum(c for (k, _, _), c in shapes.items() if k == n) for n in INFER_KERNELS}
+            log(f"path: kernel launches per call by shape hooks {expected}")
+
+        with Phase("inference kernels"):
+            totals = inference_kernel_phase(shapes)
+
+        with Phase("inference main path"):
+            torch.backends.cudnn.allow_tf32 = True  # defaults; synthesis is bf16
+            z = np.random.default_rng(2).standard_normal((BATCH, 512)).astype(np.float32)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            img, _, latent_w = ctrl.gen_batch_by_controls(batch_size=BATCH, latent=z, **ctl)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            log(f"main path: launches {counts}")
+            if tuple(img.shape) != (BATCH, 512, 512, 3) or not bool(torch.isfinite(img).all()):
+                fail(f"bad main-path output {tuple(img.shape)}")
+            want = {"fused_bias_act": 56 + 2 * 4 + 15, "fused_bias_act_grad": 0, "blur2x_up": 7,
+                    "blur2x_down": 0, "blur_sep": 0}
+            if counts != want or any(counts[n] != expected[n] for n in INFER_KERNELS):
+                fail(f"launch counts {counts}, expected {expected} (79 and 7)")
+            times = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                ctrl.gen_batch_by_controls(batch_size=BATCH, latent=z, **ctl)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            med = statistics.median(times)
+            log(f"main path: gen_batch_by_controls batch {BATCH} bf16 median {med:.2f} ms over "
+                f"{len(times)} warm calls ({BATCH / med * 1e3:.1f} images/s); all "
+                f"{[round(t, 2) for t in times]}; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            profile_phase("inference", lambda: ctrl.gen_batch_by_controls(
+                batch_size=BATCH, latent=z, **ctl), med)
+            del ctrl, img, latent_w
+
+        with Phase("inference card vs cpu"):
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            card = Controller(root, device="cuda", dtype=torch.float32)
+            cpu = Controller(root, device="cpu", dtype=torch.float32)
+            rng = np.random.default_rng(3)
+            z1 = rng.standard_normal((1, 512)).astype(np.float32)
+            noise = [rng.standard_normal(s).astype(np.float32) for s in card.model.noise_shapes(1)]
+            card.set_noise(noise)
+            cpu.set_noise(noise)
+            ctl1 = controls(1, 4)
+            want_img, _, _ = cpu.gen_batch_by_controls(latent=z1, normalize=False, **ctl1)
+            got, _, _ = card.gen_batch_by_controls(latent=z1, normalize=False, **ctl1)
+            got = got.cpu()
+            err = float((got - want_img).abs().max())
+            tol = PARITY_RTOL * max(1.0, float(want_img.abs().max()))
+            log(f"card vs cpu: batch 1 f32 TF32 off, max_abs_err {err:.3g} (tol {tol:.3g}, "
+                f"max|img| {float(want_img.abs().max()):.3g})")
+            if not (err <= tol and bool(torch.isfinite(got).all())):
+                fail("card and CPU disagree")
+    return totals, counts
+
+
+# ---------------------------------------------------------------------------
+# training (this slice)
+# ---------------------------------------------------------------------------
+
+def expected_step_counts(g, d) -> dict:
+    """Kernel launches per step kind, derived from the modules.
+
+    G: ``n_map`` mapping layers and ``n_conv`` StyledConvs run
+    fused_bias_act, ``n_up`` ToRGB skips run blur2x_up. D: ``d_fba``
+    fused_bias_act layers (``d_low`` of them below the minibatch-stddev
+    statistic), ``d_sep`` blur_sep pre-blurs. A backward runs each
+    Function's gradient kernel once: fused_bias_act_grad, blur_sep again,
+    blur2x_down for blur2x_up. The R1 double backward runs the gradient
+    kernels of the first backward once more, and the gradient kernels of
+    the forward layers below the stddev statistic, whose gradient reads its
+    input. The path-length double backward runs the StyledConvs' gradient
+    kernels again, and those of every forward layer of G (the modulations'
+    gradients read the activations, and the latent comes from the mapping);
+    the skip chain's first-order gradient is the projection noise carried
+    back by blur2x_down, which no parameter touches, so the double backward
+    launches no blur kernel in G.
+    """
+    from gan_control_torch.models.blocks import ConvLayer, EqualLinear, StyledConv
+
+    n_map = sum(isinstance(m, EqualLinear) and m.activation == "fused_lrelu" for m in g.style.modules())
+    n_conv = sum(isinstance(m, StyledConv) for m in g.modules())
+    n_up = len(g.to_rgbs)
+    heads = [m for name, m in d.named_children() if name.endswith("_head")]
+    in_heads = {id(x) for h in heads for x in h.modules()}
+    fba = [m for m in d.modules() if (isinstance(m, ConvLayer) and m.activate)
+           or (isinstance(m, EqualLinear) and m.activation == "fused_lrelu")]
+    d_fba = len(fba)
+    d_low = sum(id(m) not in in_heads for m in fba)
+    d_sep = sum(isinstance(m, ConvLayer) and m.downsample for m in d.modules())
+    g_fba = n_map + n_conv
+
+    def row(fba_, grad, up, down, sep):
+        return {"fused_bias_act": fba_, "fused_bias_act_grad": grad, "blur2x_up": up,
+                "blur2x_down": down, "blur_sep": sep}
+
+    return {
+        "d_step": row(g_fba + 2 * d_fba, 2 * d_fba, n_up, 0, 4 * d_sep),
+        "d_reg_step": row(d_fba, 2 * d_fba + d_low, 0, 0, 4 * d_sep),
+        "g_step": row(g_fba + d_fba, g_fba + d_fba, n_up, n_up, 2 * d_sep),
+        "g_reg_step": row(g_fba, 3 * n_conv + n_map, n_up, n_up, 0),
+    }
+
+
+def static_args(name: str, a: tuple) -> tuple:
+    """The arguments of a launcher call that are not tensors (for
+    fused_bias_act_grad, whether it has the second-order bias term)."""
+    if name == "fused_bias_act":  # x, bias, slope, scale
+        return (a[2], a[3])
+    if name == "fused_bias_act_grad":  # g, x, bias, gb, slope, scale
+        return (a[3] is not None, a[4], a[5])
+    return tuple(a[1:])  # blur2x_up/down: (coefficients,); blur_sep: (rt, ct, pad)
+
+
+def install_launch_recorder(seen: Counter):
+    """Hooks on the launchers: (kernel, shape, dtype, static args) -> launches.
+    Returns a function that removes them."""
+    from gan_control_torch.ops import kernels
+
+    originals = {}
+    for name in KERNELS:
+        attr = f"_cuda_{name}"
+        orig = originals[attr] = getattr(kernels, attr)
+
+        def hook(*a, _orig=orig, _name=name):
+            seen[(_name, tuple(a[0].shape), a[0].dtype, static_args(_name, a))] += 1
+            return _orig(*a)
+
+        setattr(kernels, attr, hook)
+
+    def remove():
+        for attr, orig in originals.items():
+            setattr(kernels, attr, orig)
+
+    return remove
+
+
+def train_phase(build_root: Path) -> tuple[Counter, dict]:
+    """Phase 7. Returns the recorded launches of ``train(5)`` by
+    (kernel, shape, dtype, static args) and the counters read after it."""
+    from gan_control_torch.data.datasets import synthetic_data_loader
+    from gan_control_torch.inference.inference import Inference
+    from gan_control_torch.ops import kernels
+    from gan_control_torch.trainers import generator_trainer as gt
+
+    torch.backends.cudnn.allow_tf32 = True  # the defaults: the config trains in bf16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = json.loads((CONFIGS / "ffhq.json").read_text())
+    config["results_dir"] = str(build_root / "train_results")
+    with Phase("train build"):
+        trainer = gt.GeneratorTrainer(
+            config=config, data_loader=synthetic_data_loader(16, 512, seed=0), device="cuda")
+        st = trainer.state
+        log(f"train: G synthesis {st.generator.dtype}, D {st.discriminator.dtype}, batch "
+            f"{trainer.step_cfg.batch}, params G {sum(p.numel() for p in st.generator.parameters())} "
+            f"D {sum(p.numel() for p in st.discriminator.parameters())}; results {trainer.save_dir}")
+        per_kind = expected_step_counts(st.generator, st.discriminator)
+        log(f"train: expected launches per step kind {per_kind}")
+
+    with Phase("train dry run"):
+        m = trainer.dry_run()
+        log(f"dry run: {m}")
+        if not all(math.isfinite(v) for v in m.values()):
+            fail(f"dry run losses not finite: {m}")
+
+    # per step kind: the counters' change over each step call
+    by_kind: dict[str, list[dict]] = {k: [] for k in gt.STEP_KINDS}
+    originals = {k: getattr(gt, k) for k in gt.STEP_KINDS}
+
+    def counted(kind):
+        def run(*a, **kw):
+            before = kernels.launch_counts()
+            out = originals[kind](*a, **kw)
+            after = kernels.launch_counts()
+            by_kind[kind].append({n: after[n] - before[n] for n in after})
+            return out
+        return run
+
+    before_params = {f"G.{k}": v.detach().clone() for k, v in st.generator.state_dict().items()}
+    before_params.update({f"D.{k}": v.detach().clone() for k, v in st.discriminator.state_dict().items()})
+    seen: Counter = Counter()
+    with Phase("train main path"):
+        for k in gt.STEP_KINDS:
+            setattr(gt, k, counted(k))
+        remove = install_launch_recorder(seen)
+        trainer.profile_steps = True
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            trainer.train(TRAIN_ITERS)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            copies = kernels.contiguous_grad.copies
+        finally:
+            remove()
+            for k in gt.STEP_KINDS:
+                setattr(gt, k, originals[k])
+        log(f"train main path: launches over train({TRAIN_ITERS}) {counts}; gradient layout copies {copies}")
+        for kind in gt.STEP_KINDS:
+            for got in by_kind[kind]:
+                if got != per_kind[kind]:
+                    fail(f"{kind}: launches {got}, expected {per_kind[kind]}")
+        runs = {k: len(v) for k, v in by_kind.items()}
+        if runs != {"d_step": 5, "d_reg_step": 1, "g_step": 5, "g_reg_step": 2}:
+            fail(f"step kinds run {runs}")
+        want_total = {n: sum(runs[k] * per_kind[k][n] for k in gt.STEP_KINDS) for n in KERNELS}
+        if counts != want_total:
+            fail(f"launch counts {counts}, expected {want_total}")
+        recorded = {n: sum(c for key, c in seen.items() if key[0] == n) for n in KERNELS}
+        if recorded != counts:
+            fail(f"launch hooks saw {recorded}, counters say {counts}")
+        for h in trainer.metrics_history:
+            if not all(math.isfinite(v) for v in h.values()):
+                fail(f"losses not finite: {h}")
+        log(f"train metrics: {trainer.metrics_history}")
+        unmoved = [k for k, v in (
+            [(f"G.{k}", v) for k, v in st.generator.state_dict().items()]
+            + [(f"D.{k}", v) for k, v in st.discriminator.state_dict().items()])
+            if torch.equal(v, before_params[k])]
+        if unmoved:
+            fail(f"parameters that did not change: {unmoved}")
+        for kind, ts in trainer.step_times.items():
+            log(f"train time: {kind} median {statistics.median(ts):.2f} ms over {len(ts)} "
+                f"({[round(t, 2) for t in ts]})")
+        it = [t * 1e3 for t in trainer.iter_times]
+        log(f"train time: iteration median {statistics.median(it):.2f} ms over {len(it)} "
+            f"({[round(t, 2) for t in it]}); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    with Phase("train profile"):
+        trainer.profile_steps = False
+        for label, i in (("train iteration 1 (d_step, g_step)", 1),
+                         ("train iteration 0 (all four steps)", 0)):
+            t0 = time.perf_counter()
+            trainer.one_iteration(i)
+            torch.cuda.synchronize()
+            profile_phase(label, lambda i=i: trainer.one_iteration(i), (time.perf_counter() - t0) * 1e3)
+
+    with Phase("train g_ema inference"):
+        ckpts = sorted(p.name for p in (trainer.save_dir / "checkpoint").iterdir())
+        log(f"train checkpoints: {ckpts}")
+        inf = Inference(trainer.save_dir, device="cuda")
+        img, _, _ = inf.gen_batch(batch_size=4, generator=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        if tuple(img.shape) != (4, 512, 512, 3) or not bool(torch.isfinite(img).all()):
+            fail(f"bad g_ema output {tuple(img.shape)}")
+        log(f"g_ema through Inference: {tuple(img.shape)} {img.dtype}, checkpoint {inf.ckpt_iter}, "
+            f"mean {float(img.mean()):.4f}")
+    del trainer, inf, img
+    torch.cuda.empty_cache()
+    return seen, counts
+
+
+def kernel_case(name: str, shape, dtype, args, gen):
+    """For one recorded launch: (inputs, Function call, plain version on the
+    same inputs, launcher call, library call or None)."""
+    from gan_control_torch.ops import kernels
+
+    def rnd(s, dt=dtype):
+        return torch.randn(s, generator=gen, device="cuda").to(dt)
+
+    x = rnd(shape)
+    c = shape[-1]
+    if name == "fused_bias_act":
+        slope, scale = args
+        b = rnd((c,), torch.float32)
+        return ([x, b], lambda x, b: kernels._FusedBiasAct.apply(x, b, slope, scale),
+                lambda x, b: kernels.fused_bias_act_plain(x, b, slope, scale),
+                lambda: kernels._cuda_fused_bias_act(x, b, slope, scale), None)
+    if name == "fused_bias_act_grad":
+        has_gb, slope, scale = args
+        g, b = rnd(shape), rnd((c,), torch.float32)
+        gb = rnd((c,), torch.float32) if has_gb else None
+        ins = [g, gb] if has_gb else [g]
+
+        def fn(g, gb=None):
+            return kernels._FusedBiasActGrad.apply(g, x, b, gb, slope, scale)[0]
+
+        return (ins, fn, lambda g, gb=None: kernels.fused_bias_act_grad_plain(g, x, b, gb, slope, scale),
+                lambda: kernels._cuda_fused_bias_act_grad(g, x, b, gb, slope, scale), None)
+    if name in ("blur2x_up", "blur2x_down"):
+        (k,) = args
+        up = name == "blur2x_up"
+        fn_cls = kernels._Blur2xUp if up else kernels._Blur2xDown
+        plain = kernels._up_plain if up else kernels._down_plain
+        launch = kernels._cuda_blur2x_up if up else kernels._cuda_blur2x_down
+        kt = torch.tensor(k, device="cuda", dtype=torch.float32)
+        w = torch.outer(kt, kt)[None, None].repeat(c, 1, 1, 1).to(dtype)
+        if up:  # correlation taps of the lhs-dilated form: conv_transpose2d with the flipped kernel
+            library = lambda: F.conv_transpose2d(  # noqa: E731
+                x.permute(0, 3, 1, 2), torch.flip(w, (2, 3)), stride=2, padding=1, groups=c)
+        else:
+            library = lambda: F.conv2d(x.permute(0, 3, 1, 2), w, stride=2, padding=1, groups=c)  # noqa: E731
+        return ([x], lambda x: fn_cls.apply(x, k), lambda x: plain(x, k), lambda: launch(x, k), library)
+    rt, ct, pad = args
+    w = torch.outer(torch.tensor(rt, device="cuda"), torch.tensor(ct, device="cuda"))
+    w = w[None, None].repeat(c, 1, 1, 1).to(dtype)
+    p0, p1 = pad
+
+    def library():
+        xn = x.permute(0, 3, 1, 2)
+        if p0 == p1:
+            return F.conv2d(xn, w, padding=p0, groups=c)
+        return F.conv2d(F.pad(xn, (p0, p1, p0, p1)), w, groups=c)
+
+    return ([x], lambda x: kernels._BlurSep.apply(x, rt, ct, pad),
+            lambda x: kernels.blur_sep_plain(x, rt, ct, pad),
+            lambda: kernels._cuda_blur_sep(x, rt, ct, pad), library)
+
+
+def max_err(got, want) -> tuple[float, float]:
+    """(max abs error, max |want|)."""
+    return float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+
+
+def grads_of(fn, ins, gen, order2: bool):
+    """Forward, first-order gradients of a seeded projection and, with
+    ``order2``, the gradient of a seeded projection of those with respect
+    to the first projection's weights."""
+    ins = [t.detach().clone().requires_grad_(True) for t in ins]
+    out = fn(*ins)
+    g1 = torch.randn(out.shape, generator=gen, device="cuda").requires_grad_(order2)
+    firsts = torch.autograd.grad((out.float() * g1).sum(), ins, create_graph=order2)
+    res = [out.detach(), *[f.detach() for f in firsts]]
+    if order2:
+        w2 = [torch.randn(f.shape, generator=gen, device="cuda") for f in firsts]
+        (second,) = torch.autograd.grad(sum((f.float() * w).sum() for f, w in zip(firsts, w2)), g1)
+        res.append(second)
+    return res
+
+
+def train_kernel_phase(seen: Counter) -> dict:
+    """Phase 8: per recorded (kernel, shape, dtype, args), forward and
+    backward (and, once per kernel pair, the second order) against the
+    plain version in f32 and bf16; times at the path's dtype. Returns
+    per-kernel totals over the launches of ``train(5)``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    totals = new_totals(KERNELS)
+    second_done = set()
+    for case, ((name, shape, path_dtype, args), count) in enumerate(
+            sorted(seen.items(), key=lambda kv: str(kv[0]))):
+        for dtype in (torch.float32, torch.bfloat16):
+            seed = 1000 * case + (dtype == torch.bfloat16)
+            ins, fn, plain, launch, library = kernel_case(name, shape, dtype, args,
+                                                          torch.Generator(device="cuda").manual_seed(seed))
+            pair = "blur2x" if name.startswith("blur2x") else name
+            order2 = pair not in second_done and dtype == torch.float32 and \
+                int(np.prod(shape)) <= (1 << 22)
+            got = grads_of(fn, ins, torch.Generator(device="cuda").manual_seed(1), order2)
+            want = grads_of(plain, ins, torch.Generator(device="cuda").manual_seed(1), order2)
+            errs = []
+            for i, (g, w) in enumerate(zip(got, want)):
+                err, scale = max_err(g, w)
+                rtol = KERNEL_RTOL[dtype] if i == 0 else GRAD_RTOL[dtype]
+                if not (err <= rtol * max(1.0, scale) and bool(torch.isfinite(g).all())):
+                    fail(f"{name} {list(shape)} {dtype} {args}: output {i} disagrees with the plain "
+                         f"version: {err} > {rtol * max(1.0, scale)}")
+                errs.append(err)
+            if order2:
+                second_done.add(pair)
+            line = (f"kernel {name} {list(shape)} {str(dtype)[6:]} {args} (x{count} in train("
+                    f"{TRAIN_ITERS}) in {str(path_dtype)[6:]}): errors fwd {errs[0]:.3g} bwd "
+                    f"{max(errs[1:len(ins) + 1]):.3g}" + (f" 2nd {errs[-1]:.3g}" if order2 else ""))
+            if dtype == path_dtype:
+                with torch.no_grad():
+                    t_k, t_p = cuda_ms(launch), cuda_ms(lambda: plain(*ins))
+                    t_lib = cuda_ms(library) if library is not None else None
+                t_b, by = bound(name, shape, dtype, args)
+                line += (f"; kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {t_b:.4f} ms ({by})"
+                         + ("" if t_lib is None else f" library {t_lib:.4f} ms"))
+                add_to_totals(totals[name], count, t_k, t_p, t_b, by, t_lib)
+                # the forward's error, as for the inference kernels; the
+                # gradients' errors are on the lines above
+                totals[name]["max_abs_err"] = max(totals[name]["max_abs_err"], errs[0])
+            log(line)
+            del ins, got, want
+    missing = sorted({"fused_bias_act", "fused_bias_act_grad", "blur_sep", "blur2x"} - second_done)
+    if missing:
+        fail(f"no second-order check ran for {missing}")
+    return totals
+
+
+def train_card_vs_cpu() -> None:
+    """Phase 9: iteration 0 of a size-32 model (max_channels 64, batch 16 in
+    the config's 7-group arrangement, f32, TF32 off) on the card and on the
+    CPU from the same parameters and explicit random inputs: each step
+    kind's losses and gradients, each step from the same initial state."""
+    from gan_control_torch.models.factory import build_discriminator, build_generator, build_group_spec
+    from gan_control_torch.training import train_step as ts
+    from gan_control_torch.training.state import init_gan_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = json.loads((CONFIGS / "ffhq.json").read_text())
+    config["model_config"].update(size=32, max_channels=64, mixed_precision=False)
+    tc = config["training_config"]
+    spec = build_group_spec(config)
+    cfg = ts.TrainStepConfig(batch=tc["batch"], mini_batch=tc["mini_batch"])
+    rng = np.random.default_rng(5)
+    b = tc["batch"]
+    z = torch.from_numpy(rng.standard_normal((b, 512)).astype(np.float32))
+    real = torch.from_numpy(rng.standard_normal((b, 32, 32, 3)).astype(np.float32) * 0.5)
+    g0 = build_generator(config, spec, device="cpu", seed=0)
+    noise = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in g0.noise_shapes(b)]
+    path_noise = torch.from_numpy(rng.standard_normal((b // 2, 32, 32, 3)).astype(np.float32))
+    d0 = build_discriminator(config, device="cpu", seed=1)
+    with torch.no_grad():
+        for m in g0.modules():  # non-zero noise weights, so the injection counts
+            if type(m).__name__ == "NoiseInjection":
+                m.weight.fill_(0.3)
+    def steps_on(dev: str) -> dict:
+        def mv(t):
+            return t.to(dev)
+
+        runs = {
+            "d_step": lambda st: ts.d_step(st, cfg, spec, mv(real), (mv(z),), noise=[mv(n) for n in noise]),
+            "d_reg_step": lambda st: ts.d_reg_step(st, cfg, mv(real)),
+            "g_step": lambda st: ts.g_step(st, cfg, spec, (mv(z),), noise=[mv(n) for n in noise]),
+            "g_reg_step": lambda st: ts.g_reg_step(
+                st, cfg, (mv(z[: b // 2]),), noise=[mv(n[: b // 2]) for n in noise],
+                path_noise=mv(path_noise)),
+        }
+        out = {}
+        for kind, run in runs.items():
+            st = init_gan_state(copy.deepcopy(g0).to(dev), copy.deepcopy(d0).to(dev), tc)
+            metrics = {k: float(v) for k, v in run(st).items()}
+            grads = {f"{p}.{n}": t.grad.detach().cpu() for p, mod in (("G", st.generator),
+                                                                     ("D", st.discriminator))
+                     for n, t in mod.named_parameters() if t.grad is not None}
+            out[kind] = (metrics, grads)
+        return out
+
+    cpu, card = steps_on("cpu"), steps_on("cuda")
+    for kind in cpu:
+        (mc, gc), (mg, gg) = cpu[kind], card[kind]
+        if mc.keys() != mg.keys() or gc.keys() != gg.keys():
+            fail(f"{kind}: card and CPU return other metrics or gradients")
+        loss_err = max(abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])) for k in mc)
+        worst, worst_name = 0.0, ""
+        for n in gc:
+            r = float((gg[n] - gc[n]).abs().max()) / max(float(gc[n].abs().max()), 1e-12)
+            if r > worst:
+                worst, worst_name = r, n
+        log(f"train card vs cpu: {kind} losses {mc} (card {mg}), worst loss rel err {loss_err:.3g}; "
+            f"{len(gc)} gradients, worst rel err {worst:.3g} ({worst_name}), tol {TRAIN_PARITY_RTOL}")
+        if loss_err > TRAIN_PARITY_RTOL or worst > TRAIN_PARITY_RTOL:
+            fail(f"{kind}: card and CPU disagree")
 
 
 def main() -> None:
@@ -261,110 +802,59 @@ def main() -> None:
     build_root.mkdir(parents=True, exist_ok=True)
     os.environ.setdefault("TRITON_CACHE_DIR", str(build_root / "triton_cache"))
 
-    from gan_control_torch.inference.controller import Controller
     from gan_control_torch.ops import kernels
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    log(smi.splitlines()[0])
+    card = smi.splitlines()[0]
+    log(card)
     name = torch.cuda.get_device_name(0)
     log(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. build
-    t0 = time.perf_counter()
-    report = kernels.build()
-    for lib, r in report.items():
-        regs = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
-        log(f"build {lib}: nvcc {r['seconds']:.1f} s; " + " | ".join(regs))
-    log(f"build: CUDA libraries {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    probe = torch.ones(4, 8, device="cuda")
-    kernels.fused_bias_act(probe, torch.zeros(8, device="cuda"))
-    kernels.fused_bias_act(probe.bfloat16(), torch.zeros(8, device="cuda"))
-    kernels.blur2x_up(probe.view(1, 2, 2, 8))
-    torch.cuda.synchronize()
-    log(f"build: first launches incl. Triton compile {time.perf_counter() - t0:.1f} s")
-
-    with tempfile.TemporaryDirectory(dir=build_root) as tmp:
-        root = Path(tmp) / "ffhq_controller"
-        # 3. model directory
-        t0 = time.perf_counter()
-        write_controller_dir(root)
-        ctrl = Controller(root)
-        log(f"load: wrote and loaded the FFHQ-512 controller dir in {time.perf_counter() - t0:.1f} s; "
-            f"synthesis {ctrl.model.dtype}, heads {sorted(ctrl.fc_controls)}")
-        ctl = controls(BATCH, 1)
-        shapes = record_kernel_shapes(ctrl, ctl)
-        expected = {n: sum(c for (k, _, _), c in shapes.items() if k == n) for n in REPLACES}
-        log(f"path: kernel launches per call by shape hooks {expected}")
-
-        # 4. kernels
-        totals = kernel_phase(shapes)
-
-        # 5. main path
-        torch.backends.cudnn.allow_tf32 = True  # defaults; synthesis is bf16
-        z = np.random.default_rng(2).standard_normal((BATCH, 512)).astype(np.float32)
+    with Phase("build"):
+        report = kernels.build()
+        for lib, r in report.items():
+            regs = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
+            log(f"build {lib}: nvcc {r['seconds']:.1f} s; " + " | ".join(regs))
+        probe = torch.ones(4, 8, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            p = probe.to(dt)
+            kernels.fused_bias_act(p, torch.zeros(8, device="cuda"))
+            kernels.fused_bias_act_grad(p, p, torch.zeros(8, device="cuda"))
+        kernels.blur2x_up(probe.view(1, 2, 2, 8))
+        kernels.blur2x_down(probe.view(1, 2, 2, 8))
+        kernels.blur_sep(probe.view(1, 2, 2, 8), (0.5, 0.5), (0.5, 0.5), (1, 0))
         torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        img, _, latent_w = ctrl.gen_batch_by_controls(batch_size=BATCH, latent=z, **ctl)
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        log(f"main path: launches {counts}")
-        if tuple(img.shape) != (BATCH, 512, 512, 3) or not bool(torch.isfinite(img).all()):
-            fail(f"bad main-path output {tuple(img.shape)}")
-        if counts != expected or counts != {"fused_bias_act": 56 + 2 * 4 + 15, "blur2x_up": 7}:
-            fail(f"launch counts {counts}, expected {expected} (79 and 7)")
-        times = []
-        for _ in range(7):
-            t0 = time.perf_counter()
-            ctrl.gen_batch_by_controls(batch_size=BATCH, latent=z, **ctl)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        med = statistics.median(times)
-        log(f"main path: gen_batch_by_controls batch {BATCH} bf16 median {med:.2f} ms over "
-            f"{len(times)} warm calls ({BATCH / med * 1e3:.1f} images/s); all {[round(t, 2) for t in times]}; "
-            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_phase(ctrl, z, ctl, med)
-        for n in REPLACES:
-            totals[n]["launches"] = counts[n]
-        del ctrl, img, latent_w
 
-        # 6. card against CPU, f32, TF32 off
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        card = Controller(root, device="cuda", dtype=torch.float32)
-        cpu = Controller(root, device="cpu", dtype=torch.float32)
-        rng = np.random.default_rng(3)
-        z1 = rng.standard_normal((1, 512)).astype(np.float32)
-        noise = [rng.standard_normal(s).astype(np.float32) for s in card.model.noise_shapes(1)]
-        card.set_noise(noise)
-        cpu.set_noise(noise)
-        ctl1 = controls(1, 4)
-        t0 = time.perf_counter()
-        want, _, _ = cpu.gen_batch_by_controls(latent=z1, normalize=False, **ctl1)
-        t_cpu = time.perf_counter() - t0
-        got, _, _ = card.gen_batch_by_controls(latent=z1, normalize=False, **ctl1)
-        got = got.cpu()
-        err = float((got - want).abs().max())
-        tol = PARITY_RTOL * max(1.0, float(want.abs().max()))
-        log(f"card vs cpu: batch 1 f32 TF32 off, max_abs_err {err:.3g} (tol {tol:.3g}, "
-            f"max|img| {float(want.abs().max()):.3g}); cpu call {t_cpu:.1f} s")
-        if not (err <= tol and bool(torch.isfinite(got).all())):
-            fail("card and CPU disagree")
+    # 3-6. inference
+    infer_totals, infer_counts = inference_phases(build_root)
+    for n in INFER_KERNELS:
+        t = infer_totals[n]
+        log(f"inference totals {n}: launches {infer_counts[n]} kernel {t['ms']:.4f} ms plain "
+            f"{t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms library {t['library_ms']} "
+            f"max_abs_err {t['max_abs_err']:.3g}")
+
+    # 7-9. training
+    seen, counts = train_phase(build_root)
+    with Phase("train kernels"):
+        totals = train_kernel_phase(seen)
+    with Phase("train card vs cpu"):
+        train_card_vs_cpu()
 
     entries = []
-    for n in REPLACES:
+    for n, (route, src, replaces) in KERNELS.items():
         tot = totals[n]
-        route, src = SOURCES[n]
         entries.append({
-            "name": n, "route": route, "source": src, "replaces": REPLACES[n],
-            "launches": tot["launches"], "max_abs_err": tot["max_abs_err"],
+            "name": n, "route": route, "source": src, "replaces": replaces,
+            "launches": counts[n], "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
             "library_ms": tot["library_ms"],
         })
     log(json.dumps({"kernels": entries}))
+    log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
 

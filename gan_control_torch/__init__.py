@@ -5,10 +5,12 @@ Same layout and public API as the JAX package (NHWC images, latents
 formats), with PyTorch idiom inside: ``nn.Module``s, an explicit ``device``
 argument, and ``torch.Generator``s in place of ``jax.random`` keys.
 
-The TPU kernels on the controlled-generation path are kernels written for
-Hopper (``ops/kernels.py``, ``csrc/``): ``fused_bias_act`` in Triton and
-``blur2x_up`` in CUDA C++. On a CPU tensor each wrapper runs its plain
-PyTorch version; on a CUDA tensor it launches the kernel.
+Every TPU kernel of the JAX package is a kernel written for Hopper
+(``ops/kernels.py``, ``csrc/``): ``fused_bias_act`` and its gradient in
+Triton, ``blur2x_up``, ``blur2x_down`` and ``blur_sep`` in CUDA C++, each
+with an autograd Function whose backward is a kernel too. On a CPU tensor
+each wrapper runs its plain PyTorch version; on a CUDA tensor it launches
+the kernel.
 
 The package imports neither JAX nor ``gan_control_tpu``.
 """

@@ -1,17 +1,20 @@
 """Latent partitioning: the table of per-attribute latent groups.
 
 Port of ``gan_control_tpu/latent/groups.py`` (``LatentGroup``, ``GroupSpec``
-and ``insert_group_latent``). The 512-d latent is split into contiguous
+with its static arrangement tables, ``re_arrange_z`` and
+``insert_group_latent``). The 512-d latent is split into contiguous
 per-attribute sub-vectors; the split mapping network and the controller
-heads address them through this table. The mini-batch arrangement functions
-belong to the training path and are not ported yet.
+heads address them through this table, and the phase-1 G step arranges each
+mini-batch so that even/odd row pairs share one group's sub-latent. The
+randomized arrangement mode and the noise arrangement are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, Sequence
 
+import numpy as np
 import torch
 
 
@@ -101,6 +104,50 @@ class GroupSpec:
     def fc_dims(self) -> tuple[tuple[str, int], ...]:
         """(name, latent_size) pairs feeding the split mapping network."""
         return tuple((g.name, g.latent_size) for g in self.groups)
+
+    def pair_source_rows(self) -> np.ndarray:
+        """row -> source row for the share-copy. Odd rows inside a group's
+        mini-batch slots point at the preceding even row; all others at
+        themselves."""
+        src = np.arange(self.mini_batch)
+        for g in self.groups:
+            if g.mb_start is None:
+                continue
+            for i in range(g.mb_start, g.mb_end - 1, 2):
+                src[i + 1] = i
+        return src
+
+    def share_mask(self) -> np.ndarray:
+        """[mini_batch, style_dim] bool: positions overwritten from the pair
+        source row (odd row of a group pair, that group's latent columns)."""
+        mask = np.zeros((self.mini_batch, self.style_dim), dtype=bool)
+        for g in self.groups:
+            if g.mb_start is None:
+                continue
+            for i in range(g.mb_start, g.mb_end - 1, 2):
+                mask[i + 1, g.latent_start : g.latent_end] = True
+        return mask
+
+
+def re_arrange_z(spec: GroupSpec, z_list: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Arrange one mini-batch of latents so even/odd pairs inside each
+    group's slot range share that group's sub-latent (copied from the even
+    row to the odd one). With style mixing (two z) the second equals the
+    arranged first everywhere except inside the 'other' group's slots."""
+    z0 = z_list[0]
+    src = torch.as_tensor(spec.pair_source_rows(), device=z0.device)
+    mask = torch.as_tensor(spec.share_mask(), device=z0.device)
+    z0 = torch.where(mask, z0[src], z0)
+    out = [z0]
+    other = next((g for g in spec.groups if g.name == "other"), None)
+    for zi in z_list[1:]:
+        if other is not None and other.mb_start is not None:
+            rows = torch.arange(z0.shape[0], device=z0.device)
+            keep_second = (rows >= other.mb_start) & (rows < other.mb_end)
+            out.append(torch.where(keep_second[:, None], zi, z0))
+        else:
+            out.append(z0)
+    return out
 
 
 def insert_group_latent(

@@ -1,6 +1,7 @@
-"""Generator building blocks (``nn.Module``s, NHWC activations).
+"""Generator and discriminator building blocks (``nn.Module``s, NHWC
+activations).
 
-Port of the generator half of ``gan_control_tpu/models/blocks.py``. Module
+Port of ``gan_control_tpu/models/blocks.py``. Module
 and parameter names follow the flax names so the two parameter trees map
 one to one (``utils/flax_bridge.py``): ``kernel`` becomes ``weight``, in
 PyTorch's layout (``[out, in]`` for dense, ``[out, in, kh, kw]`` for conv).
@@ -17,7 +18,15 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from gan_control_torch.ops import fused_leaky_relu, make_kernel, modulated_conv2d, upsample_2x
+from gan_control_torch.ops import (
+    blur,
+    fused_leaky_relu,
+    make_kernel,
+    modulated_conv2d,
+    scaled_leaky_relu,
+    upsample_2x,
+)
+from gan_control_torch.ops.upfirdn2d import blur_pad_downsample
 
 
 def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -229,3 +238,104 @@ class ToRGB(nn.Module):
                 skip = skip[:, c:-c, c:-c, :]
             y = y + skip
         return y
+
+
+class EqualConv2d(nn.Module):
+    """Equalized-lr conv on NHWC activations, OIHW weights scaled by
+    ``1/sqrt(in*k*k)`` at use. The conv runs on the NCHW view of the NHWC
+    buffer (``channels_last`` memory, cuDNN's preferred format); the result
+    is NHWC-contiguous again."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if use_bias else None
+        self.stride = stride
+        self.padding = padding
+        self.scale = 1.0 / math.sqrt(in_ch * kernel_size * kernel_size)
+
+    def reset_parameters_(self, generator: torch.Generator) -> None:
+        _normal_(self.weight, generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), (self.weight * self.scale).to(x.dtype),
+                     stride=self.stride, padding=self.padding)
+        y = y.permute(0, 2, 3, 1).contiguous()
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class ConvLayer(nn.Module):
+    """Discriminator conv: with ``downsample`` the FIR pre-blur (the
+    ``blur_sep`` kernel) and a stride-2 conv, then the fused
+    bias+leaky-relu kernel (or the bias alone without ``activate``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, downsample: bool = False,
+                 blur_kernel: tuple = (1, 3, 3, 1), use_bias: bool = True,
+                 activate: bool = True):
+        super().__init__()
+        self.downsample = downsample
+        self.blur_taps = tuple(blur_kernel)
+        self.activate = activate
+        if downsample:
+            self.blur_pad = blur_pad_downsample(len(blur_kernel), kernel_size)
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        self.conv = EqualConv2d(in_ch, out_ch, kernel_size, stride=stride, padding=padding,
+                                use_bias=use_bias and not activate)
+        self.bias = nn.Parameter(torch.empty(out_ch)) if activate and use_bias else None
+
+    def reset_parameters_(self, generator: torch.Generator) -> None:
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.downsample:
+            x = blur(x, self.blur_taps, pad=self.blur_pad)
+        y = self.conv(x)
+        if not self.activate:
+            return y
+        if self.bias is not None:
+            return fused_leaky_relu(y, self.bias)
+        return scaled_leaky_relu(y)
+
+
+class ResBlock(nn.Module):
+    """D residual block: 3x3 conv, downsampling 3x3 conv, 1x1 downsampling
+    skip without bias or activation, ``(out + skip) / sqrt(2)``; with the
+    fractional '896'-mode pre-pad (``lo = int(p)``, ``hi = int(p + 0.51)``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, blur_kernel: tuple = (1, 3, 3, 1),
+                 overwrite_padding: float | None = None):
+        super().__init__()
+        self.overwrite_padding = overwrite_padding
+        self.conv1 = ConvLayer(in_ch, in_ch, 3)
+        self.conv2 = ConvLayer(in_ch, out_ch, 3, downsample=True, blur_kernel=blur_kernel)
+        self.skip = ConvLayer(in_ch, out_ch, 1, downsample=True, blur_kernel=blur_kernel,
+                              activate=False, use_bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.overwrite_padding is not None:
+            lo = int(self.overwrite_padding)
+            hi = int(self.overwrite_padding + 0.51)
+            x = F.pad(x, (0, 0, lo, hi, lo, hi))
+        y = self.conv2(self.conv1(x))
+        return (y + self.skip(x)) * (1.0 / math.sqrt(2.0))
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4, num_features: int = 1) -> torch.Tensor:
+    """Append the cross-sample stddev statistic channel (NHWC): groups of
+    ``min(batch, group_size)`` strided over the batch, population variance
+    over the group, ``sqrt(var + 1e-8)``, mean over H, W and the channels of
+    each feature split, tiled back as ``num_features`` extra channels."""
+    b, h, w, c = x.shape
+    g = min(b, group_size)
+    grouped = x.reshape(g, b // g, h, w, num_features, c // num_features)
+    var = torch.var(grouped, dim=0, unbiased=False)
+    std = torch.sqrt(var + 1e-8)
+    stat = torch.mean(std, dim=(1, 2, 4))  # [b//g, feat]
+    stat = stat[:, None, None, :].repeat(g, h, w, 1)  # [b, h, w, feat]
+    return torch.cat([x, stat], dim=-1)

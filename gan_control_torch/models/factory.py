@@ -1,6 +1,6 @@
 """Model construction from the JSON config schema (port of
-``gan_control_tpu/models/factory.py``: ``build_group_spec`` and
-``build_generator``)."""
+``gan_control_tpu/models/factory.py``: ``build_group_spec``,
+``build_generator`` and ``build_discriminator``)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import torch
 
 from gan_control_torch.latent.groups import GroupSpec
 from gan_control_torch.models.blocks import init_params_
+from gan_control_torch.models.discriminator import Discriminator
 from gan_control_torch.models.generator import Generator
 from gan_control_torch.utils.device import resolve_device
 
@@ -56,6 +57,38 @@ def build_generator(
         fc_groups=None if spec is None else spec.fc_dims(),
         model_mode=model_mode,
         noise_mode=mc.get("g_noise_mode", "normal"),
+        dtype=dtype,
+    )
+    return init_params_(model, seed).to(device)
+
+
+def build_discriminator(
+    config: Mapping[str, Any],
+    device: str | torch.device | None = None,
+    dtype: torch.dtype | None = None,
+    seed: int = 0,
+) -> Discriminator:
+    """The discriminator of ``config`` on ``device`` (CUDA unless asked
+    otherwise), parameters drawn as the JAX initialisers draw them from
+    ``seed``. ``mixed_precision: true`` runs the pyramid in bf16 (params
+    and logits stay f32); ``dtype`` overrides that."""
+    device = resolve_device(device)
+    mc = config["model_config"]
+    size = mc["size"]
+    model_mode = "896" if size == 896 else "normal"
+    if size == 896:
+        size = 1024
+    if dtype is None:
+        dtype = torch.bfloat16 if mc.get("mixed_precision", False) else torch.float32
+    model = Discriminator(
+        size=size,
+        channel_multiplier=mc.get("channel_multiplier", 2.0),
+        max_channels=mc.get("max_channels", 512),
+        in_channels=mc.get("img_channels", 3),
+        verification=mc.get("verification", False),
+        verification_res_split=mc.get("verification_res_split"),
+        verification_dim=mc.get("verification_dim", 128),
+        model_mode=model_mode,
         dtype=dtype,
     )
     return init_params_(model, seed).to(device)

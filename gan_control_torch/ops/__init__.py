@@ -3,9 +3,11 @@ Hopper kernels behind them (``ops/kernels.py``)."""
 
 from gan_control_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
 from gan_control_torch.ops.modulated_conv import modulated_conv2d
-from gan_control_torch.ops.upfirdn2d import make_kernel, upsample_2x
+from gan_control_torch.ops.upfirdn2d import blur, downsample_2x, make_kernel, upsample_2x
 
 __all__ = [
+    "blur",
+    "downsample_2x",
     "fused_leaky_relu",
     "make_kernel",
     "modulated_conv2d",

@@ -1,25 +1,39 @@
-"""The Hopper kernels of the controlled-generation path, their plain
-PyTorch versions, builds and launch counters.
+"""The Hopper kernels of the port, their plain PyTorch versions, their
+autograd Functions, builds and launch counters.
 
-Two TPU kernels of ``gan_control_tpu/ops/pallas_kernels.py`` run on this
-path, and each has a kernel written for the H100 here:
+Every TPU kernel of ``gan_control_tpu/ops/pallas_kernels.py`` has a kernel
+written for the H100 here:
 
   - ``fused_bias_act`` (Pallas ``fused_bias_act``, :86): Triton, source in
-    ``csrc/fused_bias_act.py``. Bound by device-memory bytes; see the source.
-  - ``blur2x_up`` (Pallas ``blur2x_up``, :215): CUDA C++ for ``sm_90a``,
-    source in ``csrc/blur2x_up.cu``, built with ``nvcc`` into a shared library
-    with a plain C interface and bound through ``ctypes``. Bound by
-    device-memory bytes; see the source.
+    ``csrc/fused_bias_act.py``; its gradient ``fused_bias_act_grad`` is a
+    second Triton kernel in the same file. Bound by device-memory bytes.
+  - ``blur2x_up`` (Pallas ``blur2x_up``, :215): CUDA C++, ``csrc/blur2x_up.cu``.
+  - ``blur2x_down`` (Pallas ``blur2x_down``, :149): CUDA C++,
+    ``csrc/blur2x_down.cu``. It is the adjoint of ``blur2x_up`` and the
+    other way round, so the two are each other's backward.
+  - ``blur_sep`` (Pallas ``blur_sep`` and its custom VJP, :317-384): CUDA
+    C++, ``csrc/blur_sep.cu``; its backward is the same kernel with the taps
+    reversed and the pads ``K-1-p``.
 
-Each wrapper takes its plain version only for a tensor on the CPU. For a
-CUDA tensor it launches the kernel or raises; there is no fallback. Each
-wrapper checks the layout it takes (the channel is the innermost physical
-axis: NHWC or ``[rows, C]``, contiguous) and raises on any other, on every
-device. ``<wrapper>.launches`` counts kernel launches and nothing else.
+The CUDA sources are built with ``nvcc`` into shared libraries with a plain
+C interface, bound through ``ctypes``, for ``sm_90a``.
 
-The CUDA library is built at first use (or by :func:`build`) into
+Each public wrapper takes its plain version only for a tensor on the CPU,
+where autograd differentiates the plain version. For a CUDA tensor it runs
+the kernel inside a ``torch.autograd.Function`` whose backward is again a
+kernel launched through a Function, so the backward can itself be
+differentiated (R1 and path length differentiate it a second time). There
+is no fallback: a CUDA tensor launches the kernel or raises. Each wrapper
+checks the layout it takes (the channel is the innermost physical axis:
+NHWC or ``[rows, C]``, contiguous) and raises on any other, on every
+device. ``<wrapper>.launches`` counts kernel launches and nothing else;
+the counting happens in the ``_cuda_*`` launchers. The Functions do not
+materialize missing gradients: a backward that receives none (a branch of
+a double backward that no parameter depends on) launches nothing.
+
+The CUDA libraries are built at first use (or by :func:`build`) into
 ``build/gan_control_torch/`` of the checkout, under a name that carries a
-hash of its source, so a changed source is never served by a stale build.
+hash of the source, so a changed source is never served by a stale build.
 """
 
 from __future__ import annotations
@@ -45,11 +59,17 @@ _SQRT2 = math.sqrt(2.0)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # CUDA sources built into one shared library each
-_CUDA_SOURCES = {"blur2x_up": "blur2x_up.cu"}
+_CUDA_SOURCES = {
+    "blur2x_up": "blur2x_up.cu",
+    "blur2x_down": "blur2x_down.cu",
+    "blur_sep": "blur_sep.cu",
+}
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# the blur_sep kernel keeps up to 8 taps per axis in registers
+BLUR_SEP_MAX_TAPS = 8
 
 
 def _check_dtype(name: str, x: torch.Tensor) -> None:
@@ -60,6 +80,26 @@ def _check_dtype(name: str, x: torch.Tensor) -> None:
 def _check_device(name: str, x: torch.Tensor) -> None:
     if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"{name}: tensors on {x.device} are not supported")
+
+
+def _check_nhwc(name: str, x: torch.Tensor) -> None:
+    _check_device(name, x)
+    _check_dtype(name, x)
+    if x.ndim != 4 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous NHWC tensor")
+
+
+def _plain_path(x: torch.Tensor) -> bool:
+    """A wrapper runs its plain version for a tensor on the CPU, and only
+    there. (Tests substitute this to drive the autograd Functions on the
+    CPU with the plain versions in the launchers' place.)"""
+    return x.device.type == "cpu"
+
+
+def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise RuntimeError(f"{name}: the kernel takes CUDA tensors, got {t.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -102,26 +142,49 @@ def build(names=None) -> dict[str, dict]:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)
     report = {}
+    failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            failed.append(f"nvcc failed for {name}:\n{log}")
+            continue
         os.replace(tmp, out)
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return report
+
+
+_C_INT, _C_FLOAT, _C_PTR = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+# per library: its entry points (one per storage type) and their arguments
+_C_SIGNATURES = {
+    # x, out, n, h, w, c, k0..k3, stream
+    "blur2x_up": [_C_PTR, _C_PTR] + [_C_INT] * 4 + [_C_FLOAT] * 4 + [_C_PTR],
+    "blur2x_down": [_C_PTR, _C_PTR] + [_C_INT] * 4 + [_C_FLOAT] * 4 + [_C_PTR],
+    # x, out, n, h, w, c, k, p0, p1, row taps, col taps, stream
+    "blur_sep": [_C_PTR, _C_PTR] + [_C_INT] * 7 + [_C_PTR, _C_PTR, _C_PTR],
+}
 
 
 @functools.cache
 def _cuda_lib(name: str) -> ctypes.CDLL:
     build([name])
     lib = ctypes.CDLL(str(_lib_path(name)))
-    if name == "blur2x_up":
-        args = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + \
-               [ctypes.c_float] * 4 + [ctypes.c_void_p]
-        for fn in (lib.blur2x_up_f32, lib.blur2x_up_bf16):
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
+    for suffix in ("f32", "bf16"):
+        fn = getattr(lib, f"{name}_{suffix}")
+        fn.argtypes = _C_SIGNATURES[name]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _cuda_entry(name: str, x: torch.Tensor):
+    lib = _cuda_lib(name)
+    return getattr(lib, f"{name}_{'f32' if x.dtype == torch.float32 else 'bf16'}")
+
+
+def _check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
 
 @functools.cache
@@ -135,8 +198,21 @@ def _triton_module(name: str):
     return mod
 
 
+def contiguous_grad(g: torch.Tensor) -> torch.Tensor:
+    """Gradients from cuDNN may arrive in another memory layout; the
+    kernels take the channel-last buffer only, so a backward makes such a
+    gradient contiguous here and counts the copy in ``.copies``."""
+    if g.is_contiguous():
+        return g
+    contiguous_grad.copies += 1
+    return g.contiguous()
+
+
+contiguous_grad.copies = 0
+
+
 # ---------------------------------------------------------------------------
-# kernel 1: fused bias + leaky relu (Triton)
+# kernel 1: fused bias + leaky relu and its gradient (Triton)
 # ---------------------------------------------------------------------------
 
 
@@ -149,7 +225,117 @@ def fused_bias_act_plain(
     return (torch.where(y >= 0, y, y * negative_slope) * scale).to(x.dtype)
 
 
+def fused_bias_act_grad_plain(
+    g: torch.Tensor, x: torch.Tensor, bias: torch.Tensor,
+    gb: torch.Tensor | None = None, negative_slope: float = 0.2,
+    scale: float = _SQRT2,
+) -> torch.Tensor:
+    """``(x + bias >= 0 ? scale : scale * slope) * (g + gb)`` in f32, stored
+    in ``g.dtype``; ``gb`` (``[C]``, default 0) runs along the last axis.
+    With ``gb = 0`` this is the gradient of :func:`fused_bias_act_plain`
+    with respect to ``x``; with ``gb`` the upstream gradient of the bias
+    gradient it is the second-order term."""
+    y = x.float() + bias.float()
+    gain = torch.where(y >= 0, scale, scale * negative_slope)
+    gf = g.float() if gb is None else g.float() + gb.float()
+    return (gain * gf).to(g.dtype)
+
+
 _BIAS_ACT_BLOCK = 1024
+
+
+def _check_bias(name: str, x: torch.Tensor, bias: torch.Tensor) -> None:
+    c = x.shape[-1]
+    if bias.shape != (c,):
+        raise ValueError(f"{name}: bias shape {tuple(bias.shape)} != ({c},)")
+    if bias.device != x.device:
+        raise ValueError(f"{name}: x and bias on different devices")
+
+
+def _cuda_fused_bias_act(x, bias, negative_slope, scale):
+    _require_cuda("fused_bias_act", x, bias)
+    kernel = _triton_module("fused_bias_act").bias_act_kernel
+    out = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        kernel[(-(-n // _BIAS_ACT_BLOCK),)](
+            x, bias.to(torch.float32).contiguous(), out, n, x.shape[-1],
+            float(negative_slope), float(scale), BLOCK=_BIAS_ACT_BLOCK, num_warps=4,
+        )
+    fused_bias_act.launches += 1
+    return out
+
+
+def _cuda_fused_bias_act_grad(g, x, bias, gb, negative_slope, scale):
+    _require_cuda("fused_bias_act_grad", g, x, bias)
+    kernel = _triton_module("fused_bias_act").bias_act_grad_kernel
+    out = torch.empty_like(g)
+    n = g.numel()
+    if n == 0:
+        return out
+    c = g.shape[-1]
+    gb = torch.zeros(c, dtype=torch.float32, device=g.device) if gb is None else \
+        gb.to(torch.float32).contiguous()
+    with torch.cuda.device(g.device):
+        kernel[(-(-n // _BIAS_ACT_BLOCK),)](
+            g, gb, x, bias.to(torch.float32).contiguous(), out, n, c,
+            float(scale), float(scale * negative_slope),
+            BLOCK=_BIAS_ACT_BLOCK, num_warps=4,
+        )
+    fused_bias_act_grad.launches += 1
+    return out
+
+
+def _row_sum(t: torch.Tensor) -> torch.Tensor:
+    """Per-channel f32 sum over every axis but the last."""
+    return t.float().sum(dim=tuple(range(t.ndim - 1)))
+
+
+class _FusedBiasAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bias, negative_slope, scale):
+        ctx.save_for_backward(x, bias)
+        ctx.args = (negative_slope, scale)
+        ctx.set_materialize_grads(False)
+        return _cuda_fused_bias_act(x, bias, negative_slope, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if dy is None:
+            return None, None, None, None
+        x, bias = ctx.saved_tensors
+        dx, db = _FusedBiasActGrad.apply(contiguous_grad(dy), x, bias, None, *ctx.args)
+        return dx, db.to(bias.dtype), None, None
+
+
+class _FusedBiasActGrad(torch.autograd.Function):
+    """``(dx, db)`` of :class:`_FusedBiasAct` given ``g`` (and ``gb``).
+    Linear in ``(g, gb)`` with a mask that is constant almost everywhere, so
+    its own backward is the same kernel on the upstream ``(ddx, ddb)``: one
+    kernel serves every order, as StyleGAN2's
+    ``FusedLeakyReLUFunctionBackward`` does."""
+
+    @staticmethod
+    def forward(ctx, g, x, bias, gb, negative_slope, scale):
+        ctx.save_for_backward(x, bias)
+        ctx.args = (negative_slope, scale)
+        ctx.has_gb = gb is not None
+        ctx.set_materialize_grads(False)
+        dx = _cuda_fused_bias_act_grad(g, x, bias, gb, negative_slope, scale)
+        return dx, _row_sum(dx)
+
+    @staticmethod
+    def backward(ctx, ddx, ddb):
+        needed = ctx.needs_input_grad[0] or ctx.needs_input_grad[3]
+        if not needed or (ddx is None and ddb is None):
+            return None, None, None, None, None, None
+        x, bias = ctx.saved_tensors
+        if ddx is None:
+            ddx = torch.zeros_like(x)
+        dg, dgb = _FusedBiasActGrad.apply(contiguous_grad(ddx), x, bias, ddb, *ctx.args)
+        return dg, None, None, (dgb if ctx.has_gb else None), None, None
 
 
 def fused_bias_act(
@@ -159,57 +345,83 @@ def fused_bias_act(
     """``scale * leaky_relu(x + bias)``; the bias runs along the last axis.
 
     ``x``: contiguous, channel-last (``[..., C]``), float32 or bfloat16;
-    ``bias``: ``[C]``. Arithmetic in f32, result in ``x.dtype``."""
+    ``bias``: ``[C]``. Arithmetic in f32, result in ``x.dtype``.
+    Differentiable to any order in ``x`` and ``bias``."""
     _check_device("fused_bias_act", x)
     _check_dtype("fused_bias_act", x)
-    c = x.shape[-1]
     if not x.is_contiguous():
         raise ValueError("fused_bias_act: x must be contiguous with channels last")
-    if bias.shape != (c,):
-        raise ValueError(f"fused_bias_act: bias shape {tuple(bias.shape)} != ({c},)")
-    if bias.device != x.device:
-        raise ValueError("fused_bias_act: x and bias on different devices")
-    if x.device.type == "cpu":
+    _check_bias("fused_bias_act", x, bias)
+    if _plain_path(x):
         return fused_bias_act_plain(x, bias, negative_slope, scale)
-    kernel = _triton_module("fused_bias_act").bias_act_kernel
-    out = torch.empty_like(x)
-    n = x.numel()
-    if n == 0:
-        return out
-    grid = (-(-n // _BIAS_ACT_BLOCK),)
-    with torch.cuda.device(x.device):
-        kernel[grid](
-            x, bias.to(torch.float32).contiguous(), out, n, c,
-            float(negative_slope), float(scale), BLOCK=_BIAS_ACT_BLOCK,
-            num_warps=4,
-        )
-    fused_bias_act.launches += 1
-    return out
+    return _FusedBiasAct.apply(x, bias, negative_slope, scale)
 
 
 fused_bias_act.launches = 0
 
 
+def fused_bias_act_grad(
+    g: torch.Tensor, x: torch.Tensor, bias: torch.Tensor,
+    gb: torch.Tensor | None = None, negative_slope: float = 0.2,
+    scale: float = _SQRT2,
+) -> torch.Tensor:
+    """The gradient kernel of :func:`fused_bias_act` (see
+    :func:`fused_bias_act_grad_plain`); ``g`` and ``x`` contiguous,
+    channel-last, of one type. The autograd Functions call it; it is public
+    for the tests and the kernel measurements."""
+    for t in (g, x):
+        _check_device("fused_bias_act_grad", t)
+        _check_dtype("fused_bias_act_grad", t)
+    if not (g.is_contiguous() and x.is_contiguous()) or g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError("fused_bias_act_grad: g and x must be contiguous, of one shape and type")
+    _check_bias("fused_bias_act_grad", x, bias)
+    if gb is not None:
+        _check_bias("fused_bias_act_grad", x, gb)
+    if _plain_path(g):
+        return fused_bias_act_grad_plain(g, x, bias, gb, negative_slope, scale)
+    return _FusedBiasActGrad.apply(g, x, bias, gb, negative_slope, scale)[0]
+
+
+fused_bias_act_grad.launches = 0
+
+
 # ---------------------------------------------------------------------------
-# kernel 2: 2x FIR upsample, polyphase, interleaved output (CUDA C++)
+# kernels 2 and 3: 2x FIR upsample and downsample, adjoint to each other
+# (CUDA C++)
+#
+# Both take per-axis correlation coefficients k0..k3 (the same on both axes):
+#   up:   out[2u] = k0*x[u-1] + k2*x[u],  out[2u+1] = k1*x[u] + k3*x[u+1]
+#   down: out[i]  = k0*x[2i-1] + k1*x[2i] + k2*x[2i+1] + k3*x[2i+2]
+# The transpose of up with k is down with reversed(k), and the transpose of
+# down with k is up with reversed(k); the gains live in the coefficients.
 # ---------------------------------------------------------------------------
 
 
-def _axis_taps(taps) -> tuple[float, float, float, float]:
-    """Per-axis correlation taps (k0..k3) of the 2x upsample FIR: the 1-D
-    taps normalised to sum 2 (gain 2 per axis, 4 in all) and reversed."""
+def _fir4(taps) -> np.ndarray:
     k = np.asarray(taps, np.float64)
     if k.shape != (4,):
-        raise ValueError(f"blur2x_up takes 4 taps, got {tuple(taps)}")
-    k = k / k.sum() * 2.0
-    return tuple(float(v) for v in k[::-1])
+        raise ValueError(f"the 2x FIR kernels take 4 taps, got {tuple(taps)}")
+    return k / k.sum()
 
 
-def blur2x_up_plain(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
-    """The polyphase form in PyTorch: four phase planes, each a 4-term sum
-    of shifted slices of the zero-padded input, interleaved. f32 arithmetic,
-    result in ``x.dtype``. Equals ``upfirdn2d.upsample_2x``."""
-    k0, k1, k2, k3 = _axis_taps(taps)
+def _up_coefs(taps) -> tuple[float, ...]:
+    """Per-axis correlation coefficients of the 2x upsample FIR: the 1-D taps
+    normalised to sum 2 (gain 2 per axis, 4 in all) and reversed."""
+    return tuple(float(v) for v in (_fir4(taps) * 2.0)[::-1])
+
+
+def _down_coefs(taps) -> tuple[float, ...]:
+    """Per-axis correlation coefficients of the 2x downsample FIR (pad 1,
+    true convolution with the normalised taps, stride 2)."""
+    return tuple(float(v) for v in _fir4(taps)[::-1])
+
+
+def _reversed(k) -> tuple[float, ...]:
+    return tuple(reversed(k))
+
+
+def _up_plain(x: torch.Tensor, k) -> torch.Tensor:
+    k0, k1, k2, k3 = k
     n, h, w, c = x.shape
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))  # x[u] -> xp[u + 1]
     # per axis and phase: ((coef, start in xp), (coef, start in xp))
@@ -230,39 +442,216 @@ def blur2x_up_plain(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
     return torch.stack(rows, dim=2).reshape(n, 2 * h, 2 * w, c).to(x.dtype)
 
 
-def blur2x_up(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
-    """2x upsample with a separable 4-tap FIR, gain 4, NHWC in and out.
-
-    ``x``: ``[N, H, W, C]`` contiguous, float32 or bfloat16. Returns
-    ``[N, 2H, 2W, C]`` in ``x.dtype`` (f32 arithmetic)."""
-    _check_device("blur2x_up", x)
-    _check_dtype("blur2x_up", x)
-    if x.ndim != 4 or not x.is_contiguous():
-        raise ValueError("blur2x_up: x must be a contiguous NHWC tensor")
-    k = _axis_taps(taps)
-    if x.device.type == "cpu":
-        return blur2x_up_plain(x, taps)
+def _down_plain(x: torch.Tensor, k) -> torch.Tensor:
     n, h, w, c = x.shape
-    out =torch.empty((n, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
-    lib = _cuda_lib("blur2x_up")
-    fn = lib.blur2x_up_f32 if x.dtype == torch.float32 else lib.blur2x_up_bf16
+    ho, wo = h // 2, w // 2
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))  # x[m] -> xp[m + 1]
+    acc = None
+    for i in range(4):
+        for j in range(4):
+            term = (k[i] * k[j]) * xp[:, i : i + 2 * ho : 2, j : j + 2 * wo : 2]
+            acc = term if acc is None else acc + term
+    return acc.to(x.dtype)
+
+
+def blur2x_up_plain(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
+    """The polyphase form in PyTorch: four phase planes, each a 4-term sum
+    of shifted slices of the zero-padded input, interleaved. f32 arithmetic,
+    result in ``x.dtype``. Equals ``upfirdn2d.upsample_2x``."""
+    return _up_plain(x, _up_coefs(taps))
+
+
+def blur2x_down_plain(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
+    """The 16-term sum over ``x[2u-1+i, 2v-1+j]`` in PyTorch, zero outside
+    ``x``. f32 arithmetic, result in ``x.dtype``. Equals
+    ``upfirdn2d.downsample_2x`` (even sizes)."""
+    return _down_plain(x, _down_coefs(taps))
+
+
+def _cuda_blur2x(name: str, x: torch.Tensor, k, out_hw) -> torch.Tensor:
+    _require_cuda(name, x)
+    n, h, w, c = x.shape
+    out = torch.empty((n, *out_hw, c), dtype=x.dtype, device=x.device)
+    fn = _cuda_entry(name, x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), n, h, w, c, *k, stream)
-    if err != 0:
-        raise RuntimeError(f"blur2x_up: kernel launch failed with CUDA error {err}")
+        _check_launch(name, fn(x.data_ptr(), out.data_ptr(), n, h, w, c, *k, stream))
+    return out
+
+
+def _cuda_blur2x_up(x, k):
+    out = _cuda_blur2x("blur2x_up", x, k, (2 * x.shape[1], 2 * x.shape[2]))
     blur2x_up.launches += 1
     return out
 
 
+def _cuda_blur2x_down(x, k):
+    out = _cuda_blur2x("blur2x_down", x, k, (x.shape[1] // 2, x.shape[2] // 2))
+    blur2x_down.launches += 1
+    return out
+
+
+class _Blur2xUp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.k = k
+        ctx.set_materialize_grads(False)
+        return _cuda_blur2x_up(x, k)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if dy is None:
+            return None, None
+        return _Blur2xDown.apply(contiguous_grad(dy), _reversed(ctx.k)), None
+
+
+class _Blur2xDown(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.k = k
+        ctx.set_materialize_grads(False)
+        return _cuda_blur2x_down(x, k)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if dy is None:
+            return None, None
+        return _Blur2xUp.apply(contiguous_grad(dy), _reversed(ctx.k)), None
+
+
+def blur2x_up(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
+    """2x upsample with a separable 4-tap FIR, gain 4, NHWC in and out.
+
+    ``x``: ``[N, H, W, C]`` contiguous, float32 or bfloat16. Returns
+    ``[N, 2H, 2W, C]`` in ``x.dtype`` (f32 arithmetic). Its backward is
+    ``blur2x_down`` with the coefficients reversed."""
+    _check_nhwc("blur2x_up", x)
+    k = _up_coefs(taps)
+    if _plain_path(x):
+        return _up_plain(x, k)
+    return _Blur2xUp.apply(x, k)
+
+
 blur2x_up.launches = 0
+
+
+def blur2x_down(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
+    """2x downsample with a separable 4-tap FIR (pad 1, stride 2), NHWC in
+    and out: ``downsample_2x(x, make_kernel(taps))``.
+
+    ``x``: ``[N, H, W, C]`` contiguous with even ``H`` and ``W``, float32
+    or bfloat16. Returns ``[N, H/2, W/2, C]`` in ``x.dtype`` (f32
+    arithmetic). Its backward is ``blur2x_up`` with the coefficients
+    reversed, which maps back onto the even size only."""
+    _check_nhwc("blur2x_down", x)
+    if x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(f"blur2x_down: H and W must be even, got {tuple(x.shape)}")
+    k = _down_coefs(taps)
+    if _plain_path(x):
+        return _down_plain(x, k)
+    return _Blur2xDown.apply(x, k)
+
+
+blur2x_down.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: stride-1 separable FIR correlation with zero pads (CUDA C++)
+# ---------------------------------------------------------------------------
+
+
+def _check_blur_sep_args(x: torch.Tensor, row_taps, col_taps, pad) -> tuple:
+    k = len(row_taps)
+    if len(col_taps) != k or not 1 <= k <= BLUR_SEP_MAX_TAPS:
+        raise ValueError(f"blur_sep: 1..{BLUR_SEP_MAX_TAPS} taps per axis, the same number "
+                         f"on both, got {len(row_taps)} and {len(col_taps)}")
+    p0, p1 = (int(p) for p in pad)
+    if not (0 <= p0 <= k - 1 and 0 <= p1 <= k - 1):
+        raise ValueError(f"blur_sep: pads must lie in [0, {k - 1}], got {tuple(pad)}")
+    if x.shape[1] + p0 + p1 < k or x.shape[2] + p0 + p1 < k:
+        raise ValueError(f"blur_sep: input {tuple(x.shape)} smaller than the {k} taps")
+    return (tuple(float(v) for v in row_taps), tuple(float(v) for v in col_taps), (p0, p1))
+
+
+def blur_sep_plain(x: torch.Tensor, row_taps, col_taps, pad) -> torch.Tensor:
+    """``out[u, v] = sum_ij rt[i] * ct[j] * xp[u+i, v+j]`` over the input
+    zero-padded by ``pad = (p0, p1)`` on both axes: the H pass, then the W
+    pass, in f32; result in ``x.dtype``."""
+    p0, p1 = pad
+    k = len(row_taps)
+    xp = F.pad(x.float(), (0, 0, p0, p1, p0, p1))
+    ho, wo = xp.shape[1] - k + 1, xp.shape[2] - k + 1
+    t = None
+    for i, tap in enumerate(row_taps):
+        term = tap * xp[:, i : i + ho]
+        t = term if t is None else t + term
+    y = None
+    for j, tap in enumerate(col_taps):
+        term = tap * t[:, :, j : j + wo]
+        y = term if y is None else y + term
+    return y.to(x.dtype)
+
+
+def _cuda_blur_sep(x, row_taps, col_taps, pad):
+    _require_cuda("blur_sep", x)
+    n, h, w, c = x.shape
+    k = len(row_taps)
+    p0, p1 = pad
+    out = torch.empty((n, h + p0 + p1 - k + 1, w + p0 + p1 - k + 1, c),
+                      dtype=x.dtype, device=x.device)
+    rt = (ctypes.c_float * BLUR_SEP_MAX_TAPS)(*row_taps)
+    ct = (ctypes.c_float * BLUR_SEP_MAX_TAPS)(*col_taps)
+    fn = _cuda_entry("blur_sep", x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check_launch("blur_sep", fn(x.data_ptr(), out.data_ptr(), n, h, w, c, k, p0, p1,
+                                     ctypes.addressof(rt), ctypes.addressof(ct), stream))
+    blur_sep.launches += 1
+    return out
+
+
+class _BlurSep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, row_taps, col_taps, pad):
+        ctx.args = (row_taps, col_taps, pad)
+        ctx.set_materialize_grads(False)
+        return _cuda_blur_sep(x, row_taps, col_taps, pad)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if dy is None:
+            return None, None, None, None
+        # d corr(pad_p(x), A) / dx = corr(pad_{K-1-p}(dy), flip(A))
+        rt, ct, (p0, p1) = ctx.args
+        k = len(rt)
+        dx = _BlurSep.apply(contiguous_grad(dy), _reversed(rt), _reversed(ct),
+                            (k - 1 - p0, k - 1 - p1))
+        return dx, None, None, None
+
+
+def blur_sep(x: torch.Tensor, row_taps, col_taps, pad) -> torch.Tensor:
+    """Separable stride-1 FIR blur on NHWC, correlation semantics (see
+    :func:`blur_sep_plain`), ``K <= 8`` taps per axis and ``0 <= p <= K-1``.
+
+    ``x``: ``[N, H, W, C]`` contiguous, float32 or bfloat16. Returns
+    ``[N, H+p0+p1-K+1, W+p0+p1-K+1, C]`` in ``x.dtype`` (f32 arithmetic).
+    Differentiable to any order: the backward is this kernel with the taps
+    reversed and the pads ``K-1-p``."""
+    _check_nhwc("blur_sep", x)
+    args = _check_blur_sep_args(x, row_taps, col_taps, pad)
+    if _plain_path(x):
+        return blur_sep_plain(x, *args)
+    return _BlurSep.apply(x, *args)
+
+
+blur_sep.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # counters
 # ---------------------------------------------------------------------------
 
-KERNELS = (fused_bias_act, blur2x_up)
+KERNELS = (fused_bias_act, fused_bias_act_grad, blur2x_up, blur2x_down, blur_sep)
 
 
 def launch_counts() -> dict[str, int]:
@@ -272,3 +661,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    contiguous_grad.copies = 0

@@ -8,14 +8,22 @@ Port of ``gan_control_tpu/ops/upfirdn2d.py``. Semantics:
     4. keep every ``down``-th sample starting at 0
 
 The general case is a plain depthwise ``F.conv2d`` on a zero-stuffed,
-padded input, as the JAX package left it to XLA. :func:`upsample_2x`
-dispatches on its static tap tuple: the 4-tap ``(1, 3, 3, 1)`` factor-2
-case goes to the ``blur2x_up`` kernel (``ops/kernels.py``), every other
-case to the depthwise conv.
+padded input, as the JAX package left it to XLA. The FIR wrappers dispatch
+on their static taps (never on tensor values) to the Hopper kernels of
+``ops/kernels.py``:
+
+  - :func:`upsample_2x`: the 4-tap ``(1, 3, 3, 1)`` factor-2 case runs
+    ``blur2x_up``;
+  - :func:`downsample_2x`: the same taps at even sizes run ``blur2x_down``;
+  - :func:`blur`: separable taps (a 1-D tuple, or a rank-1 2-D one) of at
+    most 8 per axis with pads ``0 <= p <= K-1`` run ``blur_sep``.
+
+Every other case runs the depthwise conv.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -91,6 +99,51 @@ def upsample_2x(x: torch.Tensor, taps=DEFAULT_TAPS, factor: int = 2) -> torch.Te
     pad0 = (p + 1) // 2 + factor - 1
     pad1 = p // 2
     return upfirdn2d(x, kernel * (factor**2), up=factor, down=1, pad=(pad0, pad1))
+
+
+def downsample_2x(x: torch.Tensor, taps=DEFAULT_TAPS, factor: int = 2) -> torch.Tensor:
+    """FIR downsampling by ``factor``: pad, true convolution with the
+    normalised taps, keep every ``factor``-th sample. The 4-tap factor-2
+    case at even sizes runs the ``blur2x_down`` kernel."""
+    taps = tuple(taps)
+    if factor == 2 and taps == DEFAULT_TAPS and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
+        return kernels.blur2x_down(x, taps)
+    kernel = make_kernel(taps, device=x.device)
+    p = kernel.shape[0] - factor
+    return upfirdn2d(x, kernel, up=1, down=factor, pad=((p + 1) // 2, p // 2))
+
+
+def _separable_taps(taps) -> tuple[tuple[float, ...], tuple[float, ...]] | None:
+    """(row, col) 1-D factors of the normalised 2-D kernel ``make_kernel(taps)``
+    when it is rank one (always for 1-D taps); None otherwise."""
+    a = np.asarray(taps, np.float64)
+    if a.ndim == 1:
+        k = a / a.sum()
+        return tuple(k.tolist()), tuple(k.tolist())
+    a = a / a.sum()
+    u, s, vt = np.linalg.svd(a)
+    if len(s) > 1 and s[1] > 1e-6 * max(s[0], 1e-30):
+        return None
+    return tuple((u[:, 0] * np.sqrt(s[0])).tolist()), tuple((vt[0] * np.sqrt(s[0])).tolist())
+
+
+def blur(x: torch.Tensor, taps, pad: tuple[int, int], upsample_factor: int = 1) -> torch.Tensor:
+    """FIR blur with explicit padding (true convolution with
+    ``make_kernel(taps) * upsample_factor**2``, stride 1): the JAX
+    ``blur``. Separable taps of at most 8 per axis with pads
+    ``0 <= p <= K-1`` run the ``blur_sep`` kernel (correlation, so with the
+    taps reversed); every other case the depthwise conv."""
+    gain = float(upsample_factor**2)
+    sep = _separable_taps(taps)
+    if sep is not None:
+        k = len(sep[0])
+        if len(sep[1]) == k <= kernels.BLUR_SEP_MAX_TAPS and all(0 <= p <= k - 1 for p in pad):
+            g = np.sqrt(gain)
+            rt = tuple(g * v for v in reversed(sep[0]))
+            ct = tuple(g * v for v in reversed(sep[1]))
+            return kernels.blur_sep(x, rt, ct, (pad[0], pad[1]))
+    kernel = make_kernel(taps, device=x.device) * gain
+    return upfirdn2d(x, kernel, up=1, down=1, pad=pad)
 
 
 def blur_pad_upsample(kernel_len: int, conv_kernel_size: int, factor: int = 2):

@@ -1,0 +1,170 @@
+"""The four phase-1 train steps (port of
+``gan_control_tpu/training/train_step.py`` with ``attr_losses=()``):
+
+  - ``d_step``: D logistic loss on G(z) (iid z, no arrangement, G under
+    ``no_grad``) against the reals; the gradient is scaled as the reference
+    scales it, ``mean_loss * num_mini / mini_batch`` (each mini-batch chunk
+    divided by its size and accumulated).
+  - ``d_reg_step``: R1 on the unaugmented reals, weighted
+    ``r1 / 2 * d_reg_every``.
+  - ``g_step``: non-saturating loss of D on G(z), z arranged per mini-batch
+    chunk by ``re_arrange_z``; then the EMA.
+  - ``g_reg_step``: path length on the caller's (shrunk) batch, with style
+    mixing when given two z, weighted ``path_regularize * g_reg_every``; then
+    the EMA delta correction ``ema += (1 - d) * (p_new - p_old)``, so the EMA
+    lands on ``d * ema + (1 - d) * p_post`` once per iteration.
+
+Each step updates the state in place and returns its metrics as tensors
+(no host sync). The parameters' ``.grad`` hold the step's gradients after it
+returns. Every random input a step draws can be passed explicitly
+(injection ``noise`` per layer, ``inject_index``, the path-length
+``path_noise``); otherwise it comes from ``state.rng``. The contrastive
+attribute losses, ADA and the randomized mini-batch mode are not ported yet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from gan_control_torch.latent.groups import GroupSpec, re_arrange_z
+from gan_control_torch.training.gan_losses import (
+    d_logistic_loss,
+    g_nonsaturating_loss,
+    path_length_penalty,
+    r1_penalty,
+)
+from gan_control_torch.training.state import GANTrainState, ema_decay, ema_update
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    """Static hyper-parameters of the train steps (training_config schema)."""
+
+    batch: int
+    mini_batch: int
+    r1: float = 1.0
+    d_reg_every: int = 16
+    g_reg_every: int = 4
+    path_regularize: float = 2.0
+    path_batch_shrink: int = 2
+    g_moving_average: float = 10000.0
+    mixing: float = 0.0
+    vanilla: bool = False
+    style_dim: int = 512
+
+    @property
+    def num_mini(self) -> int:
+        return max(1, self.batch // self.mini_batch)
+
+
+def _arrange(cfg: TrainStepConfig, spec: GroupSpec, z_list: Sequence[torch.Tensor]):
+    """``re_arrange_z`` within each mini-batch chunk."""
+    mb = cfg.mini_batch
+    chunks = [re_arrange_z(spec, [z[k * mb : (k + 1) * mb] for z in z_list])
+              for k in range(cfg.num_mini)]
+    return [torch.cat([c[i] for c in chunks], dim=0) for i in range(len(z_list))]
+
+
+def _gen_images(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
+                z_list, noise, inject_index, arrange: bool):
+    styles = list(z_list)
+    if arrange and not cfg.vanilla and spec is not None:
+        styles = _arrange(cfg, spec, styles)
+    return state.generator(styles, return_latents=True, inject_index=inject_index,
+                           noise=noise, generator=state.rng)
+
+
+def d_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
+           real_img: torch.Tensor, z_list: Sequence[torch.Tensor], *,
+           noise=None, inject_index: int | None = None) -> dict:
+    with torch.no_grad():
+        fake_img, _ = _gen_images(state, cfg, spec, z_list, noise, inject_index, arrange=False)
+    d = state.discriminator
+    fake_pred, _ = d(fake_img)
+    real_pred, _ = d(real_img)
+    loss = d_logistic_loss(real_pred, fake_pred)
+    state.d_opt.zero_grad(set_to_none=True)
+    (loss * (cfg.num_mini / cfg.mini_batch)).backward()
+    state.d_opt.step()
+    return {
+        "d_loss": loss.detach(),
+        "real_score": real_pred.detach().mean(),
+        "fake_score": fake_pred.detach().mean(),
+        "r_t": torch.sign(real_pred.detach()).mean(),
+    }
+
+
+def d_reg_step(state: GANTrainState, cfg: TrainStepConfig, real_img: torch.Tensor) -> dict:
+    d = state.discriminator
+    r1 = r1_penalty(lambda x: d(x)[0], real_img)
+    state.d_opt.zero_grad(set_to_none=True)
+    (cfg.r1 / 2.0 * r1 * cfg.d_reg_every).backward()
+    state.d_opt.step()
+    return {"d_r1_loss": r1.detach()}
+
+
+@contextlib.contextmanager
+def _frozen(module: nn.Module):
+    """``module``'s parameters take no gradient inside the context."""
+    module.requires_grad_(False)
+    try:
+        yield
+    finally:
+        module.requires_grad_(True)
+
+
+def g_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
+           z_list: Sequence[torch.Tensor], *, noise=None,
+           inject_index: int | None = None) -> dict:
+    with _frozen(state.discriminator):
+        img, _ = _gen_images(state, cfg, spec, z_list, noise, inject_index, arrange=True)
+        fake_pred, _ = state.discriminator(img)
+        adv = g_nonsaturating_loss(fake_pred)
+        state.g_opt.zero_grad(set_to_none=True)
+        adv.backward()
+    state.g_opt.step()
+    ema_update(state.g_ema, state.generator, ema_decay(cfg.batch, cfg.g_moving_average))
+    state.step += 1
+    return {"g_adv_loss": adv.detach(), "g_loss": adv.detach()}
+
+
+def g_reg_step(state: GANTrainState, cfg: TrainStepConfig, z_list: Sequence[torch.Tensor], *,
+               noise=None, inject_index: int | None = None,
+               path_noise: torch.Tensor | None = None) -> dict:
+    g = state.generator
+    if len(z_list) > 1 and inject_index is None:
+        inject_index = int(torch.randint(1, g.n_latent, (), generator=state.rng,
+                                         device=state.rng.device))
+    w_list = [g.map_latent(z) for z in z_list]
+    if len(w_list) > 1:
+        layer = torch.arange(g.n_latent, device=w_list[0].device)[None, :, None]
+        latent = torch.where(layer < inject_index, w_list[0][:, None, :], w_list[1][:, None, :])
+    else:
+        latent = w_list[0][:, None, :].expand(-1, g.n_latent, -1)
+
+    def synth(lat):
+        img, _ = g([lat], input_is_latent=True, noise=noise, generator=state.rng)
+        # the path-length sum runs over ~1e7 terms: f32, whatever the synthesis type
+        return img.float()
+
+    penalty, new_mean, path_lengths = path_length_penalty(
+        synth, latent, path_noise, state.mean_path_length, generator=state.rng)
+    before = [p.detach().clone() for p in g.parameters()]
+    state.g_opt.zero_grad(set_to_none=True)
+    (cfg.path_regularize * cfg.g_reg_every * penalty).backward()
+    state.g_opt.step()
+    one_minus_d = 1.0 - ema_decay(cfg.batch, cfg.g_moving_average)
+    with torch.no_grad():
+        for e, p, p_old in zip(state.g_ema.parameters(), g.parameters(), before):
+            e.add_(p - p_old, alpha=one_minus_d)
+    state.mean_path_length = new_mean
+    return {
+        "g_path_loss": penalty.detach(),
+        "g_path_length": path_lengths.detach().mean(),
+        "g_mean_path_length": new_mean,
+    }

@@ -276,7 +276,11 @@ for name in mods:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "gan_control_tpu"))
 assert not bad, bad
-assert len(mods) >= 20, mods
+train_slice = {"gan_control_torch.models.discriminator", "gan_control_torch.training.gan_losses",
+               "gan_control_torch.training.state", "gan_control_torch.training.train_step",
+               "gan_control_torch.trainers.generator_trainer", "gan_control_torch.data.datasets"}
+assert train_slice <= set(mods), sorted(train_slice - set(mods))
+assert len(mods) >= 29, mods
 import torch
 from gan_control_torch.inference.inference import Inference
 if not torch.cuda.is_available():

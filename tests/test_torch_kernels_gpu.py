@@ -8,9 +8,12 @@ imports JAX, so there it runs with
 
 Each kernel is held against its plain PyTorch version on the same inputs on
 the card: f32 to 1e-6 (the same f32 arithmetic in another order), bf16 to
-one bf16 rounding step (2**-7 relative). Whole-model checks compare the card
-(kernels, cuDNN) with the port's CPU path in f32 with TF32 off: 1e-4
-(summation order across ~16 layers).
+one bf16 rounding step (2**-7 relative). Gradients through each wrapper on
+the card, first and second order, are held against autograd of the plain
+version on the same inputs (f32 1e-5: the backward kernels sum in another
+order). Whole-model checks compare the card (kernels, cuDNN) with the
+port's CPU path in f32 with TF32 off: 1e-4 (summation order across ~16
+layers).
 """
 
 import json
@@ -27,6 +30,8 @@ from gan_control_torch.ops import kernels
 from gan_control_torch.ops import modulated_conv2d
 from gan_control_torch.ops.upfirdn2d import make_kernel
 from gan_control_torch.utils.flax_bridge import save_flax_checkpoint
+
+BLUR4 = (0.125, 0.375, 0.375, 0.125)
 
 RTOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-7}
 
@@ -135,6 +140,157 @@ def test_tiny_controller_card_matches_cpu(cuda_device, tmp_path):
         kernels.reset_launch_counts()
         got, _, _ = card.gen_batch_by_controls(latent=z, normalize=False, orientation=o)
         torch.cuda.synchronize()
-        assert kernels.launch_counts() == {"fused_bias_act": 2 * 2 + 2 + 7, "blur2x_up": 3}
+        assert kernels.launch_counts() == {"fused_bias_act": 2 * 2 + 2 + 7, "fused_bias_act_grad": 0,
+                                           "blur2x_up": 3, "blur2x_down": 0, "blur_sep": 0}
         scale = max(1.0, float(want.abs().max()))
         assert float((got.cpu() - want).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 64, 64, 64), (3, 5, 7, 3), (5, 16)])
+def test_fused_bias_act_grad_matches_plain_on_card(cuda_device, dtype, shape):
+    g = torch.from_numpy(_randn(shape, 11)).to(cuda_device, dtype)
+    x = torch.from_numpy(_randn(shape, 12)).to(cuda_device, dtype)
+    b = torch.from_numpy(_randn(shape[-1:], 13)).to(cuda_device)
+    gb = torch.from_numpy(_randn(shape[-1:], 14)).to(cuda_device)
+    for extra in (None, gb):
+        before = kernels.fused_bias_act_grad.launches
+        got = kernels.fused_bias_act_grad(g, x, b, extra)
+        assert kernels.fused_bias_act_grad.launches == before + 1
+        _close(got, kernels.fused_bias_act_grad_plain(g, x, b, extra), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 256, 256, 3), (2, 6, 10, 16), (1, 2, 2, 3)])
+def test_blur2x_down_matches_plain_on_card(cuda_device, dtype, shape):
+    x = torch.from_numpy(_randn(shape, 15)).to(cuda_device, dtype)
+    before = kernels.blur2x_down.launches
+    got = kernels.blur2x_down(x)
+    assert kernels.blur2x_down.launches == before + 1
+    n, h, w, c = shape
+    assert got.shape == (n, h // 2, w // 2, c) and got.dtype == dtype
+    _close(got, kernels.blur2x_down_plain(x), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,taps,pad", [
+    ((4, 64, 64, 128), BLUR4, (2, 2)),   # a D pre-blur shape: 65 outputs, a ragged last tile
+    ((4, 64, 64, 128), BLUR4, (1, 1)),   # the skip's pre-blur: 63 outputs
+    ((2, 8, 8, 512), BLUR4, (2, 2)),
+    ((2, 17, 11, 40), BLUR4, (0, 3)),    # channels not a multiple of the 32-channel chunk
+    ((1, 9, 9, 3), (0.1, 0.2, 0.3, 0.1, 0.05, 0.1, 0.1, 0.05), (7, 7)),
+    ((1, 5, 6, 33), (0.5, 0.5), (1, 0)),
+])
+def test_blur_sep_matches_plain_on_card(cuda_device, dtype, shape, taps, pad):
+    x = torch.from_numpy(_randn(shape, 16)).to(cuda_device, dtype)
+    ct = tuple(reversed(taps))
+    before = kernels.blur_sep.launches
+    got = kernels.blur_sep(x, taps, ct, pad)
+    assert kernels.blur_sep.launches == before + 1
+    want = kernels.blur_sep_plain(x, taps, ct, pad)
+    assert got.shape == want.shape and got.dtype == dtype
+    _close(got, want, dtype)
+    torch.cuda.synchronize()
+
+
+def _grads_two_orders(fn, x, extra):
+    """Output, first-order gradients of a seeded projection (x and extra),
+    and the double backward: the gradient of a projection of those with
+    respect to the first projection's weights."""
+    x = x.clone().requires_grad_(True)
+    extra = [e.clone().requires_grad_(True) for e in extra]
+    out = fn(x, *extra)
+    g1 = torch.from_numpy(_randn(tuple(out.shape), 21)).to(out.device, out.dtype).requires_grad_(True)
+    firsts = torch.autograd.grad((out.float() * g1.float()).sum(), [x, *extra], create_graph=True)
+    loss2 = sum((f.float() * torch.from_numpy(_randn(tuple(f.shape), 22 + i)).to(f.device)).sum()
+                for i, f in enumerate(firsts))
+    (second,) = torch.autograd.grad(loss2, g1)
+    return [out, *firsts, second]
+
+
+GRAD_CASES = {
+    "fused_bias_act": (lambda x, b: kernels.fused_bias_act(x, b), (2, 9, 9, 64), [(64,)]),
+    "blur2x_up": (lambda x: kernels.blur2x_up(x), (2, 16, 16, 3), []),
+    "blur2x_down": (lambda x: kernels.blur2x_down(x), (2, 32, 32, 3), []),
+    "blur_sep": (lambda x: kernels.blur_sep(x, BLUR4, BLUR4, (2, 2)), (2, 16, 16, 64), []),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_gradients_through_kernels_on_card_match_plain(cuda_device, case):
+    """The autograd repair: on the card each wrapper's output carries a
+    gradient, equal to autograd of the plain version, to second order; each
+    order ran through the kernels (launch counters)."""
+    fn, shape, extra_shapes = GRAD_CASES[case]
+    x = torch.from_numpy(_randn(shape, 20))
+    extra = [torch.from_numpy(_randn(s, 30 + i)) for i, s in enumerate(extra_shapes)]
+    want = _grads_two_orders(fn, x, extra)  # CPU: autograd of the plain version
+    kernels.reset_launch_counts()
+    got = _grads_two_orders(fn, x.to(cuda_device), [e.to(cuda_device) for e in extra])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert sum(counts.values()) >= 3, counts  # forward, backward, double backward
+    for g, w in zip(got, want):
+        assert g.grad_fn is not None or not g.requires_grad
+        scale = max(1.0, float(w.detach().abs().max()))
+        assert float((g.detach().cpu().float() - w.detach().float()).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_tiny_train_steps_card_match_cpu(cuda_device):
+    """Every step kind of a size-16 model, from the same parameters and
+    explicit random inputs, on the card and on the CPU (f32, TF32 off): the
+    same losses and gradients (1e-3 of the largest entry: cuDNN's sums in
+    another order through two backward passes)."""
+    from gan_control_torch.models.factory import build_discriminator, build_generator
+    from gan_control_torch.training import train_step as ts
+    from gan_control_torch.training.state import init_gan_state
+
+    config = {"model_config": {"size": 16, "max_channels": 32, "n_mlp": 2, "split_fc": True,
+                               "latent_size": 32},
+              "training_config": {"mini_batch": 4, "lr_g": 2e-3, "lr_d": 2e-3, "sub_groups_dict": {
+                  "id": {"place_in_latent": [0, 16], "place_in_mini_batch": [0, 2]},
+                  "other": {"place_in_latent": [16, 32], "place_in_mini_batch": [2, 4]}}}}
+    spec = build_group_spec(config)
+    cfg = ts.TrainStepConfig(batch=4, mini_batch=4, style_dim=32)
+    z = torch.from_numpy(_randn((4, 32), 40))
+    real = torch.from_numpy(_randn((4, 16, 16, 3), 41) * 0.5)
+    probe = build_generator(config, spec, device="cpu")
+    noise = [torch.from_numpy(_randn(s, 50 + i)) for i, s in enumerate(probe.noise_shapes(4))]
+    path_noise = torch.from_numpy(_randn((2, 16, 16, 3), 42))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        mv = lambda t: t.to(dev)  # noqa: E731
+        runs = {
+            "d_step": lambda st: ts.d_step(st, cfg, spec, mv(real), (mv(z),), noise=[mv(n) for n in noise]),
+            "d_reg_step": lambda st: ts.d_reg_step(st, cfg, mv(real)),
+            "g_step": lambda st: ts.g_step(st, cfg, spec, (mv(z),), noise=[mv(n) for n in noise]),
+            "g_reg_step": lambda st: ts.g_reg_step(st, cfg, (mv(z[:2]),), noise=[mv(n[:2]) for n in noise],
+                                                   path_noise=mv(path_noise)),
+        }
+        for kind, run in runs.items():
+            g = build_generator(config, spec, device=dev, seed=0)
+            with torch.no_grad():
+                for m in g.modules():
+                    if type(m).__name__ == "NoiseInjection":
+                        m.weight.fill_(0.3)
+            st = init_gan_state(g, build_discriminator(config, device=dev, seed=1),
+                                config["training_config"])
+            metrics = {k: float(v) for k, v in run(st).items()}
+            grads = {f"{p}.{n}": t.grad.cpu() for p, mod in (("g", st.generator), ("d", st.discriminator))
+                     for n, t in mod.named_parameters() if t.grad is not None}
+            results[(dev, kind)] = (metrics, grads)
+    for kind in ("d_step", "d_reg_step", "g_step", "g_reg_step"):
+        (mc, gc), (mg, gg) = results[("cpu", kind)], results[("cuda", kind)]
+        assert mc.keys() == mg.keys() and gc.keys() == gg.keys()
+        for k in mc:
+            assert abs(mc[k] - mg[k]) <= 1e-3 * max(1.0, abs(mc[k])), (kind, k)
+        for n in gc:
+            scale = max(float(gc[n].abs().max()), 1e-8)
+            assert float((gg[n] - gc[n]).abs().max()) <= 1e-3 * scale, (kind, n)

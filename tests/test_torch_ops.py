@@ -146,9 +146,13 @@ def test_kernel_wrappers_check_layout_and_count_only_launches():
     x = torch.from_numpy(_randn((2, 4, 4, 8), 10))
     b = torch.zeros(8)
     kernels.fused_bias_act(x, b)
+    kernels.fused_bias_act_grad(x, x, b)
     kernels.blur2x_up(x)
+    kernels.blur2x_down(x)
+    kernels.blur_sep(x, (0.5, 0.5), (0.5, 0.5), (1, 0))
     # CPU tensors take the plain versions: nothing was launched
-    assert kernels.launch_counts() == {"fused_bias_act": 0, "blur2x_up": 0}
+    assert kernels.launch_counts() == {"fused_bias_act": 0, "fused_bias_act_grad": 0,
+                                       "blur2x_up": 0, "blur2x_down": 0, "blur_sep": 0}
     nchw_view = x.permute(0, 3, 1, 2)
     with pytest.raises(ValueError):
         kernels.fused_bias_act(nchw_view, torch.zeros(4))
@@ -162,6 +166,18 @@ def test_kernel_wrappers_check_layout_and_count_only_launches():
         kernels.blur2x_up(x.double())
     with pytest.raises(ValueError):
         kernels.blur2x_up(x, taps=(1, 2, 1))
+    with pytest.raises(ValueError):
+        kernels.blur2x_down(x[:, :3])  # odd height
+    with pytest.raises(ValueError):
+        kernels.blur2x_down(nchw_view)
+    with pytest.raises(ValueError):
+        kernels.fused_bias_act_grad(x, x.bfloat16(), b)
+    for rt, ct, pad in (((1, 1), (1, 1), (2, 0)), ((1, 1), (1, 1), (-1, 0)),
+                        ((1,) * 9, (1,) * 9, (0, 0)), ((1, 1), (1, 1, 1), (0, 0))):
+        with pytest.raises(ValueError):
+            kernels.blur_sep(x, rt, ct, pad)
+    with pytest.raises(ValueError):
+        kernels.blur_sep(nchw_view, (1, 1), (1, 1), (0, 0))
 
 
 def _mc_case(mode, k, c_in=6, c_out=5, hw=(6, 6), seed=11):
