@@ -20,7 +20,7 @@ seconds:
     ``fused_bias_act`` and ``blur2x_up`` (module hooks in one warm-up call),
     in f32 with TF32 off and in bf16, each kernel against its plain PyTorch
     version, and the times of the kernel, the plain version and, for
-    blur2x_up, a depthwise ``conv_transpose2d``;
+    blur2x_up, a depthwise ``conv_transpose2d`` (see "Times" below);
  5. inference main path: one ``gen_batch_by_controls(batch_size=8, ...)`` in
     bf16 with the launch counters set to 0 just before and read just after;
     the median of a few warm calls; the device time by kernel (profiler);
@@ -41,12 +41,25 @@ seconds:
     each for fused_bias_act, blur_sep and the blur2x_up/blur2x_down pair;
     the times of the kernel, the plain version and the PyTorch call that
     computes the same function (depthwise ``conv2d`` for blur_sep and, with
-    stride 2, for blur2x_down), and each kernel's bound;
+    stride 2, for blur2x_down), and each kernel's bound; per-kernel totals
+    over ``train(5)``, and the blur2x pair's totals against the library
+    call's;
  9. training card against CPU: iteration 0 of a size-32 model (f32, TF32
     off) from the same parameters and explicit random inputs, each step
     kind's losses and gradients;
 10. one JSON line of per-kernel numbers over ``train(5)``, then the card's
     line and the result line.
+
+Times, per launch at each shape and summed over a path's launches:
+"host-rate" is the mean over back-to-back eager calls between two CUDA
+events, which is the host's launch rate wherever the device is faster than
+the host (``ms`` in the JSON line); "device" is the mean over the same calls
+captured in one CUDA graph and replayed, which takes the host out
+(``device_ms``; the graph's gap between nodes, about a microsecond, stays
+in). Both repeat a call on the same inputs, so inputs of up to tens of MB
+are read from L2, as a layer's input written just before would be. The
+bound is the bytes moved over the HBM rate or the f32 operations over the
+f32 peak, whichever is larger.
 """
 
 from __future__ import annotations
@@ -85,6 +98,9 @@ KERNELS = {
     "blur_sep": ("cuda", "gan_control_torch/csrc/blur_sep.cu", f"{PALLAS}:318"),
 }
 INFER_KERNELS = ("fused_bias_act", "blur2x_up")
+# the one PyTorch call that computes a kernel's function (timed, never used by the port)
+LIBRARY = {"blur2x_up": "conv_transpose2d", "blur2x_down": "stride-2 depthwise conv2d",
+           "blur_sep": "depthwise conv2d"}
 # kernel vs plain version, relative to max|plain|: f32 is the same f32
 # arithmetic in another order; bf16 may round across one bf16 step (2**-7)
 KERNEL_RTOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-7}
@@ -125,7 +141,9 @@ class Phase:
 
 
 def cuda_ms(fn, min_total_ms: float = 30.0) -> float:
-    """Mean device time of ``fn`` over back-to-back launches (CUDA events)."""
+    """Host-rate time of ``fn``: the mean over back-to-back eager calls,
+    between two CUDA events. It is the device's time only where the device is
+    slower than the host's launch path; for small shapes it is the host's."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -140,6 +158,40 @@ def cuda_ms(fn, min_total_ms: float = 30.0) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, host_ms: float, target_ms: float = 20.0, replays: int = 3) -> float:
+    """Device time of ``fn`` per call: back-to-back calls captured in one CUDA
+    graph, replayed, between two CUDA events. The replay runs no Python, so
+    this is the card's time: each kernel plus the graph's gap between nodes
+    (about a microsecond). ``host_ms`` (from :func:`cuda_ms`, an upper
+    bound) sizes the graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture (cuDNN plans, the allocator)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    calls = int(min(200, max(3, target_ms / max(host_ms, 1e-3))))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def us(ms: float | None) -> str:
+    return "none" if ms is None else f"{ms * 1e3:.2f} us"
 
 
 def bound(name: str, shape, dtype, args=()) -> tuple[float, str]:
@@ -170,18 +222,52 @@ def bound(name: str, shape, dtype, args=()) -> tuple[float, str]:
 
 
 def new_totals(names) -> dict:
-    return {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-                    library_ms=None, launches=0, max_abs_err=0.0) for n in names}
+    return {n: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                    library_ms=None, library_device_ms=None, launches=0, max_abs_err=0.0)
+            for n in names}
 
 
-def add_to_totals(tot: dict, count: int, t_k: float, t_p: float, t_b: float, by: str,
-                  t_lib: float | None) -> None:
-    tot["ms"] += count * t_k
-    tot["plain_ms"] += count * t_p
+def add_to_totals(tot: dict, count: int, t: dict, t_b: float, by: str) -> None:
+    """``t``: per-launch times ``ms`` (host-rate) and ``device_ms`` of the
+    kernel, ``plain_ms``, and those of the library call (None without one)."""
+    for key in ("ms", "device_ms", "plain_ms"):
+        tot[key] += count * t[key]
     tot["bound_ms"] += count * t_b
     tot["bytes_ms" if by == "bytes" else "ops_ms"] += count * t_b
-    if t_lib is not None:
-        tot["library_ms"] = (tot["library_ms"] or 0.0) + count * t_lib
+    for key in ("library_ms", "library_device_ms"):
+        if t[key] is not None:
+            tot[key] = (tot[key] or 0.0) + count * t[key]
+
+
+def totals_text(tot: dict) -> str:
+    lib = "" if tot["library_ms"] is None else (
+        f" library host-rate {tot['library_ms']:.4f} ms device {tot['library_device_ms']:.4f} ms")
+    return (f"kernel host-rate {tot['ms']:.4f} ms device {tot['device_ms']:.4f} ms plain "
+            f"{tot['plain_ms']:.4f} ms bound {tot['bound_ms']:.4f} ms{lib} "
+            f"max_abs_err {tot['max_abs_err']:.3g}")
+
+
+def time_case(run, plain, library) -> dict:
+    """Per-launch times of a kernel call, its plain version and the library
+    call (or None): host-rate for all three, device time for the kernel and
+    the library call."""
+    t = {"ms": cuda_ms(run), "plain_ms": cuda_ms(plain), "library_ms": None, "library_device_ms": None}
+    t["device_ms"] = device_ms(run, t["ms"])
+    if library is not None:
+        t["library_ms"] = cuda_ms(library)
+        t["library_device_ms"] = device_ms(library, t["library_ms"])
+    return t
+
+
+def timing_text(t: dict, t_b: float, by: str, library_name: str | None) -> str:
+    """Per launch: device and host-rate times of the kernel and the library
+    call, beside the bound."""
+    text = (f"kernel device {us(t['device_ms'])} host-rate {us(t['ms'])}, plain {us(t['plain_ms'])}, "
+            f"bound {us(t_b)} ({by}; the device reaches {100 * t_b / t['device_ms']:.0f}% of it)")
+    if library_name is not None:
+        text += (f"; {library_name} device {us(t['library_device_ms'])} "
+                 f"host-rate {us(t['library_ms'])}")
+    return text
 
 
 # ---------------------------------------------------------------------------
@@ -286,22 +372,20 @@ def inference_kernel_phase(shapes: Counter) -> dict:
             err = float((got - want).abs().max())
             tol = KERNEL_RTOL[dtype] * max(1.0, float(want.abs().max()))
             ok = err <= tol and bool(torch.isfinite(got).all())
-            with torch.no_grad():
-                t_k, t_p = cuda_ms(run), cuda_ms(plain)
-                t_lib = lib_err = None
-                if library is not None:
-                    lib_err = float((library().permute(0, 2, 3, 1).float() - want).abs().max())
-                    t_lib = cuda_ms(library)
-            t_b, by = bound(name, shape, dtype)
-            log(f"kernel {name} {list(shape)} {str(dtype)[6:]} (x{count} on the path in "
-                f"{str(path_dtype)[6:]}): max_abs_err {err:.3g} (tol {tol:.3g}) "
-                f"kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {t_b:.4f} ms ({by}, "
-                f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s)"
-                + ("" if t_lib is None else f" conv_transpose2d {t_lib:.4f} ms (err {lib_err:.3g})"))
             if not ok:
                 fail(f"{name} disagrees with its plain version at {shape} {dtype}: {err} > {tol}")
+            with torch.no_grad():
+                lib_err = None
+                if library is not None:
+                    lib_err = float((library().permute(0, 2, 3, 1).float() - want).abs().max())
+                t = time_case(run, plain, library)
+            t_b, by = bound(name, shape, dtype)
+            log(f"kernel {name} {list(shape)} {str(dtype)[6:]} (x{count} on the path in "
+                f"{str(path_dtype)[6:]}): max_abs_err {err:.3g} (tol {tol:.3g}); per launch "
+                + timing_text(t, t_b, by, LIBRARY.get(name))
+                + ("" if lib_err is None else f" (its err {lib_err:.3g})"))
             if dtype == path_dtype:
-                add_to_totals(totals[name], count, t_k, t_p, t_b, by, t_lib)
+                add_to_totals(totals[name], count, t, t_b, by)
                 totals[name]["max_abs_err"] = max(totals[name]["max_abs_err"], err)
     return totals
 
@@ -707,12 +791,10 @@ def train_kernel_phase(seen: Counter) -> dict:
                     f"{max(errs[1:len(ins) + 1]):.3g}" + (f" 2nd {errs[-1]:.3g}" if order2 else ""))
             if dtype == path_dtype:
                 with torch.no_grad():
-                    t_k, t_p = cuda_ms(launch), cuda_ms(lambda: plain(*ins))
-                    t_lib = cuda_ms(library) if library is not None else None
+                    t = time_case(launch, lambda: plain(*ins), library)
                 t_b, by = bound(name, shape, dtype, args)
-                line += (f"; kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {t_b:.4f} ms ({by})"
-                         + ("" if t_lib is None else f" library {t_lib:.4f} ms"))
-                add_to_totals(totals[name], count, t_k, t_p, t_b, by, t_lib)
+                line += "; per launch " + timing_text(t, t_b, by, LIBRARY.get(name))
+                add_to_totals(totals[name], count, t, t_b, by)
                 # the forward's error, as for the inference kernels; the
                 # gradients' errors are on the lines above
                 totals[name]["max_abs_err"] = max(totals[name]["max_abs_err"], errs[0])
@@ -831,15 +913,21 @@ def main() -> None:
     # 3-6. inference
     infer_totals, infer_counts = inference_phases(build_root)
     for n in INFER_KERNELS:
-        t = infer_totals[n]
-        log(f"inference totals {n}: launches {infer_counts[n]} kernel {t['ms']:.4f} ms plain "
-            f"{t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms library {t['library_ms']} "
-            f"max_abs_err {t['max_abs_err']:.3g}")
+        log(f"inference totals {n}: launches {infer_counts[n]} " + totals_text(infer_totals[n]))
 
     # 7-9. training
     seen, counts = train_phase(build_root)
     with Phase("train kernels"):
         totals = train_kernel_phase(seen)
+    for n in KERNELS:
+        log(f"train({TRAIN_ITERS}) totals {n}: launches {counts[n]} " + totals_text(totals[n]))
+    # the blur2x pair against the one PyTorch call that computes each
+    for label, tot in (("blur2x_up over one generation call", infer_totals["blur2x_up"]),
+                       (f"blur2x_up over train({TRAIN_ITERS})", totals["blur2x_up"]),
+                       (f"blur2x_down over train({TRAIN_ITERS})", totals["blur2x_down"])):
+        log(f"blur2x vs library: {label}: host-rate {tot['ms']:.4f} ms vs {tot['library_ms']:.4f} ms "
+            f"({tot['ms'] / tot['library_ms']:.2f}x); device {tot['device_ms']:.4f} ms vs "
+            f"{tot['library_device_ms']:.4f} ms; bound {tot['bound_ms']:.4f} ms")
     with Phase("train card vs cpu"):
         train_card_vs_cpu()
 
@@ -849,7 +937,8 @@ def main() -> None:
         entries.append({
             "name": n, "route": route, "source": src, "replaces": replaces,
             "launches": counts[n], "max_abs_err": tot["max_abs_err"],
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
             "library_ms": tot["library_ms"],
         })

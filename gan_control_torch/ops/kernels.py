@@ -23,10 +23,12 @@ where autograd differentiates the plain version. For a CUDA tensor it runs
 the kernel inside a ``torch.autograd.Function`` whose backward is again a
 kernel launched through a Function, so the backward can itself be
 differentiated (R1 and path length differentiate it a second time). There
-is no fallback: a CUDA tensor launches the kernel or raises. Each wrapper
-checks the layout it takes (the channel is the innermost physical axis:
-NHWC or ``[rows, C]``, contiguous) and raises on any other, on every
-device. ``<wrapper>.launches`` counts kernel launches and nothing else;
+is no fallback: a CUDA tensor launches the kernel or raises (``blur2x_up``
+and ``blur2x_down`` call their launchers without the Function when their
+input needs no gradient or autograd is off). Each wrapper checks the
+layout it takes (the channel is the innermost physical axis: NHWC or
+``[rows, C]``, contiguous) and raises on any other, on every device.
+``<wrapper>.launches`` counts kernel launches and nothing else;
 the counting happens in the ``_cuda_*`` launchers. The Functions do not
 materialize missing gradients: a backward that receives none (a branch of
 a double backward that no parameter depends on) launches nothing.
@@ -155,12 +157,12 @@ def build(names=None) -> dict[str, dict]:
     return report
 
 
-_C_INT, _C_FLOAT, _C_PTR = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+_C_INT, _C_PTR = ctypes.c_int, ctypes.c_void_p
 # per library: its entry points (one per storage type) and their arguments
 _C_SIGNATURES = {
-    # x, out, n, h, w, c, k0..k3, stream
-    "blur2x_up": [_C_PTR, _C_PTR] + [_C_INT] * 4 + [_C_FLOAT] * 4 + [_C_PTR],
-    "blur2x_down": [_C_PTR, _C_PTR] + [_C_INT] * 4 + [_C_FLOAT] * 4 + [_C_PTR],
+    # x, out, n, h, w, c, the 4 coefficients (host array), stream
+    "blur2x_up": [_C_PTR, _C_PTR] + [_C_INT] * 4 + [_C_PTR, _C_PTR],
+    "blur2x_down": [_C_PTR, _C_PTR] + [_C_INT] * 4 + [_C_PTR, _C_PTR],
     # x, out, n, h, w, c, k, p0, p1, row taps, col taps, stream
     "blur_sep": [_C_PTR, _C_PTR] + [_C_INT] * 7 + [_C_PTR, _C_PTR, _C_PTR],
 }
@@ -177,9 +179,14 @@ def _cuda_lib(name: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _entry(name: str, dtype: torch.dtype):
+    """A library's C entry point for a storage type, resolved once."""
+    return getattr(_cuda_lib(name), f"{name}_{'f32' if dtype == torch.float32 else 'bf16'}")
+
+
 def _cuda_entry(name: str, x: torch.Tensor):
-    lib = _cuda_lib(name)
-    return getattr(lib, f"{name}_{'f32' if x.dtype == torch.float32 else 'bf16'}")
+    return _entry(name, x.dtype)
 
 
 def _check_launch(name: str, err: int) -> None:
@@ -404,19 +411,23 @@ def _fir4(taps) -> np.ndarray:
     return k / k.sum()
 
 
-def _up_coefs(taps) -> tuple[float, ...]:
+# The coefficients are computed once per tap tuple: a launch does no numpy.
+@functools.cache
+def _up_coefs(taps: tuple) -> tuple[float, ...]:
     """Per-axis correlation coefficients of the 2x upsample FIR: the 1-D taps
     normalised to sum 2 (gain 2 per axis, 4 in all) and reversed."""
     return tuple(float(v) for v in (_fir4(taps) * 2.0)[::-1])
 
 
-def _down_coefs(taps) -> tuple[float, ...]:
+@functools.cache
+def _down_coefs(taps: tuple) -> tuple[float, ...]:
     """Per-axis correlation coefficients of the 2x downsample FIR (pad 1,
     true convolution with the normalised taps, stride 2)."""
     return tuple(float(v) for v in _fir4(taps)[::-1])
 
 
-def _reversed(k) -> tuple[float, ...]:
+@functools.cache
+def _reversed(k: tuple) -> tuple[float, ...]:
     return tuple(reversed(k))
 
 
@@ -458,24 +469,45 @@ def blur2x_up_plain(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
     """The polyphase form in PyTorch: four phase planes, each a 4-term sum
     of shifted slices of the zero-padded input, interleaved. f32 arithmetic,
     result in ``x.dtype``. Equals ``upfirdn2d.upsample_2x``."""
-    return _up_plain(x, _up_coefs(taps))
+    return _up_plain(x, _up_coefs(tuple(taps)))
 
 
 def blur2x_down_plain(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
     """The 16-term sum over ``x[2u-1+i, 2v-1+j]`` in PyTorch, zero outside
     ``x``. f32 arithmetic, result in ``x.dtype``. Equals
     ``upfirdn2d.downsample_2x`` (even sizes)."""
-    return _down_plain(x, _down_coefs(taps))
+    return _down_plain(x, _down_coefs(tuple(taps)))
+
+
+# The launch path is kept short, since at the generator's small shapes the
+# host's cost per launch exceeds the kernel's: the wrappers call the launcher
+# directly when autograd has nothing to record, the entry point is resolved
+# once per (kernel, type), the coefficients reach the C launcher as one
+# pointer to a cached host array, the stream handle is read raw (the capture
+# stream inside a CUDA graph), and a device context is entered only when the
+# tensor is not on the current device.
+
+
+@functools.cache
+def _host_coefs(k: tuple) -> tuple[ctypes.Array, int]:
+    """The 4 coefficients as a C float array (kept alive here) and its address."""
+    arr = (ctypes.c_float * 4)(*k)
+    return arr, ctypes.addressof(arr)
 
 
 def _cuda_blur2x(name: str, x: torch.Tensor, k, out_hw) -> torch.Tensor:
     _require_cuda(name, x)
     n, h, w, c = x.shape
-    out = torch.empty((n, *out_hw, c), dtype=x.dtype, device=x.device)
-    fn = _cuda_entry(name, x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _check_launch(name, fn(x.data_ptr(), out.data_ptr(), n, h, w, c, *k, stream))
+    out = x.new_empty((n, *out_hw, c))
+    fn = _entry(name, x.dtype)
+    args = (x.data_ptr(), out.data_ptr(), n, h, w, c, _host_coefs(k)[1])
+    dev = x.get_device()
+    if dev == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    _check_launch(name, err)
     return out
 
 
@@ -526,9 +558,11 @@ def blur2x_up(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
     ``[N, 2H, 2W, C]`` in ``x.dtype`` (f32 arithmetic). Its backward is
     ``blur2x_down`` with the coefficients reversed."""
     _check_nhwc("blur2x_up", x)
-    k = _up_coefs(taps)
+    k = _up_coefs(tuple(taps))
     if _plain_path(x):
         return _up_plain(x, k)
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return _cuda_blur2x_up(x, k)  # autograd records nothing: the launcher alone
     return _Blur2xUp.apply(x, k)
 
 
@@ -546,9 +580,11 @@ def blur2x_down(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
     _check_nhwc("blur2x_down", x)
     if x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f"blur2x_down: H and W must be even, got {tuple(x.shape)}")
-    k = _down_coefs(taps)
+    k = _down_coefs(tuple(taps))
     if _plain_path(x):
         return _down_plain(x, k)
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return _cuda_blur2x_down(x, k)  # autograd records nothing: the launcher alone
     return _Blur2xDown.apply(x, k)
 
 

@@ -102,7 +102,10 @@ def test_blur_upsample_factor_matches_lax():
                                np.asarray(want), **FIR_TOL)
 
 
-@pytest.mark.parametrize("hw,c", [((8, 8), 3), ((16, 6), 5), ((2, 2), 1)])
+# C of 1, 3 and 8, odd output widths and 2x2 inputs: the kernel's edge
+# cases (on the card the kernel is held to this plain version)
+@pytest.mark.parametrize("hw,c", [((8, 8), 3), ((16, 6), 5), ((2, 2), 1),
+                                  ((2, 2), 3), ((2, 2), 8), ((6, 10), 8), ((10, 6), 1), ((4, 14), 3)])
 def test_downsample_2x_matches_lax_and_pallas_blur2x_down(hw, c):
     """``downsample_2x`` runs the blur2x_down wrapper (plain on the CPU)
     against the lax path (forward and vjp) and the Pallas blur2x_down

@@ -123,6 +123,51 @@ def test_functions_launch_only_for_needed_gradients(monkeypatch):
         assert len(calls) == launches
 
 
+def test_blur2x_coefficients_are_cached_and_reach_the_launchers(monkeypatch):
+    """The coefficients are computed once per tap tuple and equal the formula
+    (normalised taps, reversed; gain 2 per axis for up). Each backward hands
+    its launcher the forward's coefficients reversed, and every order
+    launches once: forward, backward and double backward of each kernel."""
+    taps = (1, 3, 3, 1)
+    k = np.asarray(taps, np.float64) / 8.0
+    up, down = kernels._up_coefs(taps), kernels._down_coefs(taps)
+    assert up == tuple(float(v) for v in 2.0 * k[::-1])
+    assert down == tuple(float(v) for v in k[::-1])
+    assert kernels._up_coefs((1.0, 3.0, 3.0, 1.0)) is up
+    assert kernels._down_coefs(tuple([1, 3, 3, 1])) is down
+    assert kernels._reversed(up) is kernels._reversed(up)
+
+    _drive_functions(monkeypatch)
+    calls = []
+
+    def recorder(which, plain, counter):
+        def launch(x, coefs):
+            calls.append((which, coefs))
+            counter.launches += 1
+            return plain(x, coefs)
+        return launch
+
+    monkeypatch.setattr(kernels, "_cuda_blur2x_up", recorder("up", kernels._up_plain, kernels.blur2x_up))
+    monkeypatch.setattr(kernels, "_cuda_blur2x_down",
+                        recorder("down", kernels._down_plain, kernels.blur2x_down))
+    rev_up, rev_down = tuple(reversed(up)), tuple(reversed(down))
+    for fn, shape, want in (
+            (kernels.blur2x_up, (2, 3, 5, 3), [("up", up), ("down", rev_up), ("up", up)]),
+            (kernels.blur2x_down, (2, 4, 6, 3), [("down", down), ("up", rev_down), ("down", down)])):
+        calls.clear()
+        kernels.reset_launch_counts()
+        _orders(fn, _randn(shape, 0))
+        assert calls == want
+        counts = kernels.launch_counts()
+        assert (counts["blur2x_up"], counts["blur2x_down"]) == (
+            sum(c[0] == "up" for c in want), sum(c[0] == "down" for c in want))
+    # without a gradient to record, the wrapper calls the launcher alone
+    calls.clear()
+    with torch.no_grad():
+        out = kernels.blur2x_up(_randn((1, 2, 2, 3), 1).requires_grad_(True))
+    assert out.grad_fn is None and calls == [("up", up)]
+
+
 def _all_step_grads(config: dict, seed: int = 0) -> dict:
     """Metrics and gradients of each step kind of a size-16 model, each from
     the same initial state (noise weights 0.3), every random input explicit."""

@@ -71,9 +71,21 @@ def test_fused_bias_act_matches_plain_on_card(cuda_device, dtype, shape):
     torch.cuda.synchronize()
 
 
+# Edges of the blur2x kernels: C of 1, 3, 4, 8, 64 and 300 (above
+# blur2x_up's 256-channel tile); rows whose W*C*itemsize is no multiple of 16
+# bytes (W = 4, C = 3 in bf16: 24 bytes); odd H and W; images of one pixel;
+# a batch above the 65535 of one grid axis at a tiny H x W.
+UP_SHAPES = [(8, 128, 128, 3), (2, 5, 7, 16), (1, 1, 1, 3),
+             (2, 4, 4, 3), (3, 7, 9, 1), (2, 5, 3, 4), (2, 9, 11, 8), (2, 17, 13, 64),
+             (1, 3, 5, 300), (16, 64, 64, 3), (70000, 1, 1, 3)]
+DOWN_SHAPES = [(8, 256, 256, 3), (2, 6, 10, 16), (1, 2, 2, 3),
+               (2, 2, 2, 1), (2, 2, 2, 8), (3, 8, 8, 3), (2, 6, 14, 4), (2, 10, 6, 64),
+               (1, 4, 6, 300), (16, 128, 128, 3), (70000, 2, 2, 3)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 128, 128, 3), (2, 5, 7, 16), (1, 1, 1, 3)])
+@pytest.mark.parametrize("shape", UP_SHAPES)
 def test_blur2x_up_matches_plain_on_card(cuda_device, dtype, shape):
     x = torch.from_numpy(_randn(shape, 3)).to(cuda_device, dtype)
     before = kernels.blur2x_up.launches
@@ -164,7 +176,7 @@ def test_fused_bias_act_grad_matches_plain_on_card(cuda_device, dtype, shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 256, 256, 3), (2, 6, 10, 16), (1, 2, 2, 3)])
+@pytest.mark.parametrize("shape", DOWN_SHAPES)
 def test_blur2x_down_matches_plain_on_card(cuda_device, dtype, shape):
     x = torch.from_numpy(_randn(shape, 15)).to(cuda_device, dtype)
     before = kernels.blur2x_down.launches
@@ -174,6 +186,56 @@ def test_blur2x_down_matches_plain_on_card(cuda_device, dtype, shape):
     assert got.shape == (n, h // 2, w // 2, c) and got.dtype == dtype
     _close(got, kernels.blur2x_down_plain(x), dtype)
     torch.cuda.synchronize()
+
+
+BLUR2X = {"up": (kernels.blur2x_up, kernels.blur2x_up_plain),
+          "down": (kernels.blur2x_down, kernels.blur2x_down_plain)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("which,shape", [("up", (2, 6, 4, 3)), ("up", (1, 8, 8, 8)),
+                                         ("down", (2, 6, 4, 3)), ("down", (1, 8, 8, 8))])
+def test_blur2x_unaligned_input_on_card(cuda_device, dtype, offset, which, shape):
+    """A contiguous input that starts ``offset`` elements past an aligned
+    address: its rows' 16-byte pieces sit elsewhere than the row starts, and
+    the kernel's own scalar route copies the ragged ends."""
+    fn, plain = BLUR2X[which]
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(_randn((n + offset,), 17)).to(cuda_device, dtype)
+    x = buf[offset:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _close(fn(x), plain(x), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blur2x_pair_in_a_cuda_graph(cuda_device, dtype):
+    """Both kernels captured in one CUDA graph (the launch path reads the
+    capture stream), replayed on new inputs: each equals its plain version,
+    and the counters counted the captured launches only."""
+    x = torch.from_numpy(_randn((4, 16, 16, 3), 18)).to(cuda_device, dtype)
+    y = torch.from_numpy(_randn((4, 32, 32, 3), 19)).to(cuda_device, dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.blur2x_up(x), kernels.blur2x_down(y)
+    torch.cuda.current_stream().wait_stream(side)
+    kernels.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        up, down = kernels.blur2x_up(x), kernels.blur2x_down(y)
+    assert kernels.blur2x_up.launches == 1 and kernels.blur2x_down.launches == 1
+    for seed in (20, 21):
+        x.copy_(torch.from_numpy(_randn(tuple(x.shape), seed)).to(cuda_device, dtype))
+        y.copy_(torch.from_numpy(_randn(tuple(y.shape), seed + 10)).to(cuda_device, dtype))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(up, kernels.blur2x_up_plain(x), dtype)
+        _close(down, kernels.blur2x_down_plain(y), dtype)
+    assert kernels.blur2x_up.launches == 1 and kernels.blur2x_down.launches == 1
 
 
 @pytest.mark.gpu

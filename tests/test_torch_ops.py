@@ -117,9 +117,13 @@ def test_fused_bias_act_plain_matches_pallas_and_lax(shape):
     np.testing.assert_allclose(got, np.asarray(lax), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("hw", [(8, 8), (5, 7), (1, 1)])
-def test_blur2x_up_plain_matches_pallas_and_lax(hw):
-    x = _randn((2, *hw, 3), 7)
+# C of 1, 3 and 8, odd widths and 1x1 images: the edges of the kernel's tiles
+# (on the card the kernel is held to this plain version)
+@pytest.mark.parametrize("hw,c", [((8, 8), 3), ((5, 7), 3), ((1, 1), 3),
+                                  ((1, 1), 1), ((3, 9), 1), ((4, 5), 8), ((1, 1), 8), ((6, 3), 8)],
+                         ids=["hw0", "hw1", "hw2", "c1-1x1", "c1-3x9", "c8-4x5", "c8-1x1", "c8-6x3"])
+def test_blur2x_up_plain_matches_pallas_and_lax(hw, c):
+    x = _randn((2, *hw, c), 7)
     got = kernels.blur2x_up_plain(_t(x), K).numpy()
     pallas = j_pallas.blur2x_up(jnp.asarray(x), K)
     lax = j_fir.upsample_2x(jnp.asarray(x), j_fir.make_kernel(K))
