@@ -42,8 +42,11 @@ seconds:
     the times of the kernel, the plain version and the PyTorch call that
     computes the same function (depthwise ``conv2d`` for blur_sep and, with
     stride 2, for blur2x_down), and each kernel's bound; per-kernel totals
-    over ``train(5)``, and the blur2x pair's totals against the library
-    call's;
+    over ``train(5)``, the blur2x pair's totals against the library call's,
+    and blur_sep per D level (one launch of each of its four shapes); then
+    blur_sep's direct variant (one channel a thread) at shapes the path
+    never gives (C = 33 and 40, 2 and 3 taps, a misaligned input), forward
+    and backward against the plain version;
  9. training card against CPU: iteration 0 of a size-32 model (f32, TF32
     off) from the same parameters and explicit random inputs, each step
     kind's losses and gradients;
@@ -57,7 +60,8 @@ the host (``ms`` in the JSON line); "device" is the mean over the same calls
 captured in one CUDA graph and replayed, which takes the host out
 (``device_ms``; the graph's gap between nodes, about a microsecond, stays
 in). Both repeat a call on the same inputs, so inputs of up to tens of MB
-are read from L2, as a layer's input written just before would be. The
+are read from L2, as a layer's input written just before would be; larger
+ones (blur_sep's four largest D levels, 67-537 MB) stream from HBM. The
 bound is the bytes moved over the HBM rate or the f32 operations over the
 f32 peak, whichever is larger.
 """
@@ -764,6 +768,7 @@ def train_kernel_phase(seen: Counter) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     totals = new_totals(KERNELS)
+    levels: dict[tuple, dict] = {}  # blur_sep per D level (size, C): one launch of each shape
     second_done = set()
     for case, ((name, shape, path_dtype, args), count) in enumerate(
             sorted(seen.items(), key=lambda kv: str(kv[0]))):
@@ -798,12 +803,83 @@ def train_kernel_phase(seen: Counter) -> dict:
                 # the forward's error, as for the inference kernels; the
                 # gradients' errors are on the lines above
                 totals[name]["max_abs_err"] = max(totals[name]["max_abs_err"], errs[0])
+                if name == "blur_sep":
+                    add_to_level(levels, shape, args, count, t, t_b)
             log(line)
             del ins, got, want
     missing = sorted({"fused_bias_act", "fused_bias_act_grad", "blur_sep", "blur2x"} - second_done)
     if missing:
         fail(f"no second-order check ran for {missing}")
+    for (s, c), lv in sorted(levels.items(), reverse=True):
+        log(f"blur_sep level {s} px C {c}: {lv['shapes']} shapes, x{lv['count']} in train("
+            f"{TRAIN_ITERS}); one launch of each: kernel device {us(lv['device_ms'])} host-rate "
+            f"{us(lv['ms'])}, bound {us(lv['bound_ms'])} (the device reaches "
+            f"{100 * lv['bound_ms'] / lv['device_ms']:.0f}% of it); depthwise conv2d device "
+            f"{us(lv['library_device_ms'])}")
     return totals
+
+
+def add_to_level(levels: dict, shape, args, count: int, t: dict, t_b: float) -> None:
+    """Adds one blur_sep shape's per-launch times to its D level: the even
+    one of its input and output sizes (a level of size s runs s -> s+1 and
+    s -> s-1 forward, s+1 -> s and s-1 -> s backward)."""
+    _, _, (p0, p1) = args
+    h = shape[1]
+    level = (h if h % 2 == 0 else h + p0 + p1 - 3, shape[-1])
+    lv = levels.setdefault(level, dict(shapes=0, count=0, ms=0.0, device_ms=0.0, bound_ms=0.0,
+                                       library_device_ms=0.0))
+    lv["shapes"] += 1
+    lv["count"] += count
+    lv["bound_ms"] += t_b
+    for key in ("ms", "device_ms", "library_device_ms"):
+        lv[key] += t[key]
+
+
+def blur_sep_variant_check() -> None:
+    """The direct (one channel a thread) variant of blur_sep at shapes the
+    path never gives (C = 33 and 40, 2 and 3 taps, a 16-byte-misaligned
+    input), in f32 (TF32 off) and bf16, forward and backward against the
+    plain version."""
+    from gan_control_torch.ops import kernels
+
+    torch.backends.cudnn.allow_tf32 = False
+    cases = [((4, 37, 29, 33), (0.25, 0.5, 0.25), (0.2, 0.3, 0.5), (1, 2), 0),
+             ((4, 64, 64, 64), (0.125, 0.375, 0.375, 0.125), (0.125, 0.375, 0.375, 0.125), (2, 2), 1),
+             ((2, 31, 17, 40), (0.5, 0.5), (0.7, 0.3), (0, 1), 3)]
+    for i, (shape, rt, ct, pad, offset) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(2000 + i)
+            buf = torch.randn(int(np.prod(shape)) + offset, generator=gen, device="cuda").to(dtype)
+            x = buf[offset:].view(shape)
+            lanes, rows = kernels.blur_sep_plan(x.shape, len(rt), pad, x.element_size(), x.data_ptr())
+            if lanes != 1:
+                fail(f"blur_sep {shape} offset {offset} {dtype}: the direct variant was not chosen")
+            g1 = None
+
+            def fwd_bwd(fn):  # on x itself: a copy would be aligned
+                nonlocal g1
+                xg = x.detach().requires_grad_(True)
+                out = fn(xg)
+                if g1 is None:
+                    g1 = torch.randn(out.shape, generator=gen, device="cuda")
+                (dx,) = torch.autograd.grad((out.float() * g1).sum(), xg)
+                return out.detach(), dx
+
+            before = kernels.blur_sep.launches
+            got = fwd_bwd(lambda a: kernels.blur_sep(a, rt, ct, pad))
+            want = fwd_bwd(lambda a: kernels.blur_sep_plain(a, rt, ct, pad))
+            if kernels.blur_sep.launches != before + 2:
+                fail(f"blur_sep {shape}: {kernels.blur_sep.launches - before} launches, expected 2")
+            errs = []
+            for j, (g, w) in enumerate(zip(got, want)):
+                err, scale = max_err(g, w)
+                tol = (KERNEL_RTOL if j == 0 else GRAD_RTOL)[dtype] * max(1.0, scale)
+                if not (err <= tol and bool(torch.isfinite(g).all())):
+                    fail(f"blur_sep direct variant {shape} {rt} {pad} offset {offset} {dtype}: "
+                         f"output {j} disagrees with the plain version: {err} > {tol}")
+                errs.append(err)
+            log(f"blur_sep direct variant {list(shape)} taps {len(rt)} pad {pad} offset {offset} "
+                f"{str(dtype)[6:]} (lanes {lanes}, rows {rows}): errors fwd {errs[0]:.3g} bwd {errs[1]:.3g}")
 
 
 def train_card_vs_cpu() -> None:
@@ -919,6 +995,7 @@ def main() -> None:
     seen, counts = train_phase(build_root)
     with Phase("train kernels"):
         totals = train_kernel_phase(seen)
+        blur_sep_variant_check()
     for n in KERNELS:
         log(f"train({TRAIN_ITERS}) totals {n}: launches {counts[n]} " + totals_text(totals[n]))
     # the blur2x pair against the one PyTorch call that computes each

@@ -13,7 +13,9 @@ written for the H100 here:
     other way round, so the two are each other's backward.
   - ``blur_sep`` (Pallas ``blur_sep`` and its custom VJP, :317-384): CUDA
     C++, ``csrc/blur_sep.cu``; its backward is the same kernel with the taps
-    reversed and the pads ``K-1-p``.
+    reversed and the pads ``K-1-p``. Two variants, both counted in
+    ``blur_sep.launches``: 16-byte channel vectors per thread, or one
+    channel per thread for any ``C`` and alignment (:func:`blur_sep_plan`).
 
 The CUDA sources are built with ``nvcc`` into shared libraries with a plain
 C interface, bound through ``ctypes``, for ``sm_90a``.
@@ -23,9 +25,9 @@ where autograd differentiates the plain version. For a CUDA tensor it runs
 the kernel inside a ``torch.autograd.Function`` whose backward is again a
 kernel launched through a Function, so the backward can itself be
 differentiated (R1 and path length differentiate it a second time). There
-is no fallback: a CUDA tensor launches the kernel or raises (``blur2x_up``
-and ``blur2x_down`` call their launchers without the Function when their
-input needs no gradient or autograd is off). Each wrapper checks the
+is no fallback: a CUDA tensor launches the kernel or raises (``blur2x_up``,
+``blur2x_down`` and ``blur_sep`` call their launchers without the Function
+when their input needs no gradient or autograd is off). Each wrapper checks the
 layout it takes (the channel is the innermost physical axis: NHWC or
 ``[rows, C]``, contiguous) and raises on any other, on every device.
 ``<wrapper>.launches`` counts kernel launches and nothing else;
@@ -163,8 +165,8 @@ _C_SIGNATURES = {
     # x, out, n, h, w, c, the 4 coefficients (host array), stream
     "blur2x_up": [_C_PTR, _C_PTR] + [_C_INT] * 4 + [_C_PTR, _C_PTR],
     "blur2x_down": [_C_PTR, _C_PTR] + [_C_INT] * 4 + [_C_PTR, _C_PTR],
-    # x, out, n, h, w, c, k, p0, p1, row taps, col taps, stream
-    "blur_sep": [_C_PTR, _C_PTR] + [_C_INT] * 7 + [_C_PTR, _C_PTR, _C_PTR],
+    # x, out, n, h, w, c, k, p0, p1, lanes, rows, the taps (host array), stream
+    "blur_sep": [_C_PTR, _C_PTR] + [_C_INT] * 9 + [_C_PTR, _C_PTR],
 }
 
 
@@ -183,10 +185,6 @@ def _cuda_lib(name: str) -> ctypes.CDLL:
 def _entry(name: str, dtype: torch.dtype):
     """A library's C entry point for a storage type, resolved once."""
     return getattr(_cuda_lib(name), f"{name}_{'f32' if dtype == torch.float32 else 'bf16'}")
-
-
-def _cuda_entry(name: str, x: torch.Tensor):
-    return _entry(name, x.dtype)
 
 
 def _check_launch(name: str, err: int) -> None:
@@ -488,6 +486,16 @@ def blur2x_down_plain(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
 # tensor is not on the current device.
 
 
+def _call_on_stream(fn, args: tuple, x: torch.Tensor) -> int:
+    """Calls a C entry point with ``args`` and the raw current stream of
+    ``x``'s device, entering a device context only off the current device."""
+    dev = x.get_device()
+    if dev == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+
+
 @functools.cache
 def _host_coefs(k: tuple) -> tuple[ctypes.Array, int]:
     """The 4 coefficients as a C float array (kept alive here) and its address."""
@@ -499,15 +507,8 @@ def _cuda_blur2x(name: str, x: torch.Tensor, k, out_hw) -> torch.Tensor:
     _require_cuda(name, x)
     n, h, w, c = x.shape
     out = x.new_empty((n, *out_hw, c))
-    fn = _entry(name, x.dtype)
     args = (x.data_ptr(), out.data_ptr(), n, h, w, c, _host_coefs(k)[1])
-    dev = x.get_device()
-    if dev == torch._C._cuda_getDevice():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-    _check_launch(name, err)
+    _check_launch(name, _call_on_stream(_entry(name, x.dtype), args, x))
     return out
 
 
@@ -628,20 +629,51 @@ def blur_sep_plain(x: torch.Tensor, row_taps, col_taps, pad) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+# Output rows per thread: the staged variant's bands of about 8 rows; the
+# direct variant's 1 to 16 (kMaxRows in csrc/blur_sep.cu), as many as leave
+# a launch BLUR_SEP_THREADS threads (about 1000 per SM of an H100).
+BLUR_SEP_STAGED_ROWS = 8
+BLUR_SEP_THREADS = 132 * 1024
+BLUR_SEP_MAX_ROWS = 16
+
+
+def blur_sep_plan(shape, k: int, pad, itemsize: int, address: int) -> tuple[int, int]:
+    """``(lanes, rows)`` of a ``blur_sep`` launch on an ``[N, H, W, C]``
+    input at ``address``. ``lanes``: the channels one thread owns, a 16-byte
+    vector (the staged variant) or, where ``C`` is no multiple of it or the
+    input is not 16-byte aligned, 1 (the direct variant). ``rows``: the
+    output rows a thread walks."""
+    n, h, w, c = shape
+    ho, wo = h + pad[0] + pad[1] - k + 1, w + pad[0] + pad[1] - k + 1
+    lanes = 16 // itemsize
+    if c % lanes or address % 16:
+        lanes = 1
+    if lanes > 1:  # bands of equal height, about BLUR_SEP_STAGED_ROWS each
+        return lanes, -(-ho // -(-ho // BLUR_SEP_STAGED_ROWS))
+    units = n * ho * wo * c
+    return 1, max(1, min(BLUR_SEP_MAX_ROWS, -(-units // BLUR_SEP_THREADS)))
+
+
+@functools.cache
+def _host_taps(row_taps: tuple, col_taps: tuple) -> tuple[ctypes.Array, int]:
+    """Both tap tuples as one C float array (kept alive here), the row taps
+    at ``[0, K)`` and the column taps at ``[8, 8 + K)``, and its address."""
+    pad = (0.0,) * (BLUR_SEP_MAX_TAPS - len(row_taps))
+    arr = (ctypes.c_float * (2 * BLUR_SEP_MAX_TAPS))(*row_taps, *pad, *col_taps, *pad)
+    return arr, ctypes.addressof(arr)
+
+
 def _cuda_blur_sep(x, row_taps, col_taps, pad):
     _require_cuda("blur_sep", x)
     n, h, w, c = x.shape
     k = len(row_taps)
     p0, p1 = pad
-    out = torch.empty((n, h + p0 + p1 - k + 1, w + p0 + p1 - k + 1, c),
-                      dtype=x.dtype, device=x.device)
-    rt = (ctypes.c_float * BLUR_SEP_MAX_TAPS)(*row_taps)
-    ct = (ctypes.c_float * BLUR_SEP_MAX_TAPS)(*col_taps)
-    fn = _cuda_entry("blur_sep", x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _check_launch("blur_sep", fn(x.data_ptr(), out.data_ptr(), n, h, w, c, k, p0, p1,
-                                     ctypes.addressof(rt), ctypes.addressof(ct), stream))
+    out = x.new_empty((n, h + p0 + p1 - k + 1, w + p0 + p1 - k + 1, c))
+    ptr = x.data_ptr()
+    lanes, rows = blur_sep_plan(x.shape, k, pad, x.element_size(), ptr)
+    args = (ptr, out.data_ptr(), n, h, w, c, k, p0, p1, lanes, rows,
+            _host_taps(row_taps, col_taps)[1])
+    _check_launch("blur_sep", _call_on_stream(_entry("blur_sep", x.dtype), args, x))
     blur_sep.launches += 1
     return out
 
@@ -677,6 +709,8 @@ def blur_sep(x: torch.Tensor, row_taps, col_taps, pad) -> torch.Tensor:
     args = _check_blur_sep_args(x, row_taps, col_taps, pad)
     if _plain_path(x):
         return blur_sep_plain(x, *args)
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return _cuda_blur_sep(x, *args)  # autograd records nothing: the launcher alone
     return _BlurSep.apply(x, *args)
 
 

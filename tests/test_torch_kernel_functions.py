@@ -15,6 +15,7 @@ Tolerance: f32 arithmetic in another order, 1e-5 of the largest entry;
 bf16 storage, one bf16 step (2**-7) of the largest entry.
 """
 
+import ctypes
 import json
 from pathlib import Path
 
@@ -166,6 +167,101 @@ def test_blur2x_coefficients_are_cached_and_reach_the_launchers(monkeypatch):
     with torch.no_grad():
         out = kernels.blur2x_up(_randn((1, 2, 2, 3), 1).requires_grad_(True))
     assert out.grad_fn is None and calls == [("up", up)]
+
+
+BLUR4 = (0.125, 0.375, 0.375, 0.125)
+# the discriminator's pre-blur levels at FFHQ-512, channel multiplier 2: (size, C)
+D_LEVELS = [(512, 64), (256, 128), (128, 256), (64, 512), (32, 512), (16, 512), (8, 512)]
+
+
+def _path_blur_sep_shapes():
+    """The 28 blur_sep launches of a D forward and backward at batch 16:
+    per level the conv2 and skip pre-blurs and their backwards."""
+    for s, c in D_LEVELS:
+        yield (16, s, s, c), (2, 2)
+        yield (16, s, s, c), (1, 1)
+        yield (16, s + 1, s + 1, c), (1, 1)
+        yield (16, s - 1, s - 1, c), (2, 2)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_blur_sep_plan_on_the_path_stages_vectors_in_bands_of_about_8_rows(itemsize):
+    """Every path shape takes the staged variant (a 16-byte vector per
+    thread); its bands split the output rows evenly, about 8 rows each."""
+    # output height -> rows per band, where it is not 8
+    uneven = {33: 7, 17: 6, 9: 5, 7: 7}
+    shapes = list(_path_blur_sep_shapes())
+    assert len(shapes) == 28
+    for shape, pad in shapes:
+        ho = shape[1] + pad[0] + pad[1] - 3
+        lanes, rows = kernels.blur_sep_plan(shape, 4, pad, itemsize, 1 << 20)
+        assert (lanes, rows) == (16 // itemsize, uneven.get(ho, 8)), (shape, pad)
+        assert -(-ho // rows) == -(-ho // 8)  # as many bands as of 8 rows, evened out
+
+
+@pytest.mark.parametrize("shape,pad,itemsize,address,want", [
+    # C no multiple of the vector: the direct variant, one channel a thread,
+    # rows for about BLUR_SEP_THREADS threads
+    ((16, 64, 64, 3), (2, 2), 2, 0, (1, 2)),
+    ((16, 32, 32, 33), (1, 1), 2, 0, (1, 4)),
+    ((2, 17, 11, 33), (0, 3), 4, 0, (1, 1)),
+    ((16, 512, 512, 3), (2, 2), 4, 0, (1, 16)),
+    # C = 40: a vector in bf16 (5 of 8) and in f32 (10 of 4)
+    ((2, 17, 11, 40), (0, 3), 2, 0, (8, 6)),
+    ((2, 17, 11, 40), (0, 3), 4, 0, (4, 6)),
+    # a 16-byte-misaligned input: direct, whatever C
+    ((16, 64, 64, 512), (2, 2), 2, 2, (1, 16)),
+    ((2, 8, 8, 64), (1, 1), 4, 4, (1, 1)),
+    ((2, 8, 8, 64), (1, 1), 4, 8, (1, 1)),
+    ((2, 8, 8, 64), (1, 1), 4, 48, (4, 7)),
+    # a batch beyond one grid axis at a tiny image
+    ((65537, 2, 2, 8), (2, 2), 2, 0, (8, 3)),
+    ((65537, 2, 2, 3), (1, 1), 2, 0, (1, 2)),
+])
+def test_blur_sep_plan_off_the_path(shape, pad, itemsize, address, want):
+    assert kernels.blur_sep_plan(shape, 4, pad, itemsize, address) == want
+
+
+def test_blur_sep_host_taps_are_cached_in_one_array():
+    rt, ct = (0.1, 0.2, 0.7), (0.5, 0.25, 0.25)
+    arr, addr = kernels._host_taps(rt, ct)
+    assert kernels._host_taps(rt, ct)[0] is arr
+    assert addr == ctypes.addressof(arr)
+    np.testing.assert_array_equal(np.frombuffer(arr, np.float32),
+                                  np.float32([*rt, 0, 0, 0, 0, 0, *ct, 0, 0, 0, 0, 0]))
+
+
+def test_blur_sep_launches_without_the_function_when_nothing_is_recorded(monkeypatch):
+    """Without a gradient to record, the wrapper calls the launcher once and
+    the output has no ``grad_fn``; with one, the forward, backward and double
+    backward launch once each (taps reversed and pads ``K-1-p`` in the
+    backward) and the gradients equal autograd of the plain version."""
+    rt, ct, pad = (0.1, 0.2, 0.7), (0.5, 0.25, 0.25), (0, 2)
+    x = _randn((2, 6, 5, 3), 0)
+    want = _orders(lambda a: kernels.blur_sep(a, rt, ct, pad), x)
+    _drive_functions(monkeypatch)
+    calls = []
+
+    def launch(x, row_taps, col_taps, pad):
+        calls.append((row_taps, col_taps, pad))
+        kernels.blur_sep.launches += 1
+        return kernels.blur_sep_plain(x, row_taps, col_taps, pad)
+
+    monkeypatch.setattr(kernels, "_cuda_blur_sep", launch)
+    kernels.reset_launch_counts()
+    for no_grad, needs_grad in ((True, True), (False, False)):
+        calls.clear()
+        with torch.set_grad_enabled(not no_grad):
+            out = kernels.blur_sep(x.clone().requires_grad_(needs_grad), rt, ct, pad)
+        assert out.grad_fn is None and calls == [(rt, ct, pad)]
+        assert torch.equal(out, kernels.blur_sep_plain(x, rt, ct, pad))
+    assert kernels.launch_counts()["blur_sep"] == 2
+    calls.clear()
+    kernels.reset_launch_counts()
+    got = _orders(lambda a: kernels.blur_sep(a, rt, ct, pad), x)
+    assert calls == [(rt, ct, pad), (rt[::-1], ct[::-1], (2, 0)), (rt, ct, pad)]
+    assert kernels.launch_counts()["blur_sep"] == 3
+    _compare(want, got, torch.float32)
 
 
 def _all_step_grads(config: dict, seed: int = 0) -> dict:

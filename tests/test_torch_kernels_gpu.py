@@ -243,10 +243,15 @@ def test_blur2x_pair_in_a_cuda_graph(cuda_device, dtype):
 @pytest.mark.parametrize("shape,taps,pad", [
     ((4, 64, 64, 128), BLUR4, (2, 2)),   # a D pre-blur shape: 65 outputs, a ragged last tile
     ((4, 64, 64, 128), BLUR4, (1, 1)),   # the skip's pre-blur: 63 outputs
+    ((4, 65, 65, 128), BLUR4, (1, 1)),   # their backwards: 65 and 63 in, 64 out
+    ((4, 63, 63, 128), BLUR4, (2, 2)),
+    ((2, 32, 32, 64), BLUR4, (2, 2)),    # the 512-px level's width, 33 outputs: two tiles
     ((2, 8, 8, 512), BLUR4, (2, 2)),
-    ((2, 17, 11, 40), BLUR4, (0, 3)),    # channels not a multiple of the 32-channel chunk
+    ((2, 9, 9, 512), BLUR4, (1, 1)),
+    ((2, 17, 11, 40), BLUR4, (0, 3)),    # channels not a multiple of 32 or 64
     ((1, 9, 9, 3), (0.1, 0.2, 0.3, 0.1, 0.05, 0.1, 0.1, 0.05), (7, 7)),
     ((1, 5, 6, 33), (0.5, 0.5), (1, 0)),
+    ((1, 0, 5, 8), BLUR4, (2, 2)),       # an empty input: the pads alone, zeros
 ])
 def test_blur_sep_matches_plain_on_card(cuda_device, dtype, shape, taps, pad):
     x = torch.from_numpy(_randn(shape, 16)).to(cuda_device, dtype)
@@ -258,6 +263,80 @@ def test_blur_sep_matches_plain_on_card(cuda_device, dtype, shape, taps, pad):
     assert got.shape == want.shape and got.dtype == dtype
     _close(got, want, dtype)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_blur_sep_every_pad_and_width_on_card(cuda_device, dtype, k):
+    """Every pad pair in [0, K-1] at C = 3 and 33 (the direct variant) and
+    8, 24 and 64 (the staged one), odd H and W, unequal row and column taps:
+    each launches once and equals the plain version."""
+    rt = tuple(0.1 * (i + 1) for i in range(k))
+    ct = tuple(0.05 * (k - i) + 0.01 for i in range(k))
+    for c in (3, 8, 24, 33, 64):
+        x = torch.from_numpy(_randn((2, 7, 9, c), 100 + c)).to(cuda_device, dtype)
+        for p0 in range(k):
+            for p1 in range(k):
+                if 7 + p0 + p1 < k:
+                    continue
+                before = kernels.blur_sep.launches
+                got = kernels.blur_sep(x, rt, ct, (p0, p1))
+                assert kernels.blur_sep.launches == before + 1
+                _close(got, kernels.blur_sep_plain(x, rt, ct, (p0, p1)), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("shape,pad", [((2, 11, 13, 64), (2, 2)), ((2, 10, 7, 40), (1, 1))])
+def test_blur_sep_unaligned_input_on_card(cuda_device, dtype, offset, shape, pad):
+    """A contiguous input that starts ``offset`` elements past a 16-byte
+    boundary takes the direct variant, whatever C."""
+    buf = torch.from_numpy(_randn((int(np.prod(shape)) + offset,), 22)).to(cuda_device, dtype)
+    x = buf[offset:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert kernels.blur_sep_plan(x.shape, 4, pad, x.element_size(), x.data_ptr())[0] == 1
+    _close(kernels.blur_sep(x, BLUR4, BLUR4, pad), kernels.blur_sep_plain(x, BLUR4, BLUR4, pad), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,pad", [(8, (2, 2)), (3, (1, 1))])
+def test_blur_sep_batch_beyond_one_grid_axis_on_card(cuda_device, dtype, c, pad):
+    x = torch.from_numpy(_randn((65537, 2, 2, c), 23)).to(cuda_device, dtype)
+    _close(kernels.blur_sep(x, BLUR4, BLUR4, pad), kernels.blur_sep_plain(x, BLUR4, BLUR4, pad), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blur_sep_in_a_cuda_graph(cuda_device, dtype):
+    """Both variants captured in one CUDA graph (the staged one's tensor map
+    and the taps travel in the launch's arguments), replayed on new inputs:
+    each equals the plain version, and only the captured launches counted."""
+    x = torch.from_numpy(_randn((2, 16, 16, 64), 24)).to(cuda_device, dtype)
+    y = torch.from_numpy(_randn((2, 9, 11, 3), 25)).to(cuda_device, dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.blur_sep(x, BLUR4, BLUR4, (2, 2)), kernels.blur_sep(y, BLUR4, BLUR4, (1, 1))
+    torch.cuda.current_stream().wait_stream(side)
+    kernels.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bx, by = kernels.blur_sep(x, BLUR4, BLUR4, (2, 2)), kernels.blur_sep(y, BLUR4, BLUR4, (1, 1))
+    assert kernels.blur_sep.launches == 2
+    for seed in (26, 27):
+        x.copy_(torch.from_numpy(_randn(tuple(x.shape), seed)).to(cuda_device, dtype))
+        y.copy_(torch.from_numpy(_randn(tuple(y.shape), seed + 10)).to(cuda_device, dtype))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(bx, kernels.blur_sep_plain(x, BLUR4, BLUR4, (2, 2)), dtype)
+        _close(by, kernels.blur_sep_plain(y, BLUR4, BLUR4, (1, 1)), dtype)
+    assert kernels.blur_sep.launches == 2
 
 
 def _grads_two_orders(fn, x, extra):
