@@ -1,12 +1,14 @@
 """Latent partitioning: the table of per-attribute latent groups.
 
 Port of ``gan_control_tpu/latent/groups.py`` (``LatentGroup``, ``GroupSpec``
-with its static arrangement tables, ``re_arrange_z`` and
-``insert_group_latent``). The 512-d latent is split into contiguous
-per-attribute sub-vectors; the split mapping network and the controller
-heads address them through this table, and the phase-1 G step arranges each
-mini-batch so that even/odd row pairs share one group's sub-latent. The
-randomized arrangement mode and the noise arrangement are not ported yet.
+with its static arrangement tables, ``re_arrange_z``, ``same_not_same_split``,
+``extract_group_latent`` and ``insert_group_latent``). The 512-d latent is
+split into contiguous per-attribute sub-vectors; the split mapping network
+and the controller heads address them through this table, the phase-1 G
+step arranges each mini-batch so that even/odd row pairs share one group's
+sub-latent, and the contrastive losses split the predictors' features by
+those slots. The randomized arrangement mode and the noise arrangement are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -148,6 +150,23 @@ def re_arrange_z(spec: GroupSpec, z_list: Sequence[torch.Tensor]) -> list[torch.
         else:
             out.append(z0)
     return out
+
+
+def same_not_same_split(
+    spec: GroupSpec, features: torch.Tensor, group_name: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Split a [mini_batch, ...] tensor into the rows of one group's slots
+    (same) and every other row (not_same), each in its order."""
+    g = spec.group(group_name)
+    same = features[g.mb_start : g.mb_end]
+    not_same = torch.cat([features[: g.mb_start], features[g.mb_end :]], dim=0)
+    return same, not_same
+
+
+def extract_group_latent(spec: GroupSpec, latent: torch.Tensor, group_name: str) -> torch.Tensor:
+    """One group's sub-latent of w ([B,512]) or w+ ([B,L,512])."""
+    g = spec.group(group_name)
+    return latent[..., g.latent_start : g.latent_end]
 
 
 def insert_group_latent(

@@ -1,0 +1,43 @@
+"""The frozen predictor networks of the contrastive losses.
+
+Each module holds one network (an ``nn.Module`` that maps NHWC [-1, 1]
+images to its list of feature layers, the criterion's embedding last) and:
+
+  - ``make_model(loss_block)``: the network with empty parameters;
+  - ``last_layer_dist(features) -> [N, N]``;
+  - ``read_reference_state_dict(path)``: the reference checkpoint as a
+    ``state_dict`` in the network's names;
+  - ``state_dict_from_flax(tree)``: the JAX package's parameter tree as that
+    ``state_dict``.
+
+The six of the FFHQ configuration are ported; ``dogfacenet``, ``vgg_style``
+and ``imagenet_cls`` (AFHQ, MetFaces) are not.
+"""
+
+from __future__ import annotations
+
+import importlib
+from types import ModuleType
+
+# loss block name -> predictor module
+PREDICTOR_MODULES = {
+    "embedding_loss": "arcface",
+    "orientation_loss": "hopenet",
+    "age_loss": "dex_age",
+    "expression_loss": "esr9",
+    "hair_loss": "hair_pspnet",
+    "recon_3d_loss": "face3dmm",
+}
+
+# enabled only by the AFHQ and MetFaces configurations
+NOT_PORTED = ("style_loss", "dog_id_loss", "classification_loss")
+
+
+def predictor_module(loss_name: str) -> ModuleType:
+    """The predictor module of a loss block (``recon_<sub>_loss`` reads the
+    R-Net of ``recon_3d_loss``)."""
+    if loss_name.startswith("recon_"):
+        loss_name = "recon_3d_loss"
+    if loss_name in NOT_PORTED:
+        raise NotImplementedError(f"{loss_name} is not ported to gan_control_torch yet")
+    return importlib.import_module(f"gan_control_torch.losses.predictors.{PREDICTOR_MODULES[loss_name]}")

@@ -2,7 +2,9 @@
 ``gan_control_tpu/trainers/generator_trainer.py``).
 
 Per iteration ``i``: ``d_step`` every ``d_every``, ``d_reg_step`` (R1) every
-``d_reg_every``, ``g_step``, and ``g_reg_step`` (path length on a
+``d_reg_every``, ``g_step`` (with the contrastive attribute losses of the
+frozen predictor battery when given, as ``train_generator.py`` builds them
+with ``build_attr_losses``), and ``g_reg_step`` (path length on a
 ``batch // path_batch_shrink`` batch) every ``g_reg_every``; EMA after each
 G update. Host z come from ``np.random.default_rng(seed + 1)`` exactly as in
 the JAX trainer, so both draw the same z; injection noise, the mixing index
@@ -12,10 +14,10 @@ and the path-length noise come from a ``torch.Generator`` seeded with
 and the JAX package's ``Inference`` read them as they read a JAX model
 directory.
 
-Not ported yet: the contrastive attribute losses and their predictor
-battery, ADA, the randomized mini-batch mode, transfer learning, resuming
-from a checkpoint (the optimizer state is not saved), the image-folder
-loaders, sample images, FID and separability evaluation.
+Not ported yet: ADA, the randomized mini-batch mode, transfer learning,
+resuming from a checkpoint (the optimizer state is not saved), the
+image-folder loaders, sample images, FID and separability evaluation, and a
+``train_generator`` command line.
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ from __future__ import annotations
 import copy
 import time
 from pathlib import Path
-from typing import Any, Iterator, Mapping
+from typing import Any, Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from gan_control_torch.data.datasets import synthetic_data_loader
+from gan_control_torch.losses.registry import cast_predictor_params
 from gan_control_torch.models.factory import (
     build_discriminator,
     build_generator,
@@ -36,6 +40,7 @@ from gan_control_torch.models.factory import (
 )
 from gan_control_torch.training.state import init_gan_state
 from gan_control_torch.training.train_step import (
+    AttributeLossSpec,
     TrainStepConfig,
     d_reg_step,
     d_step,
@@ -79,10 +84,15 @@ class GeneratorTrainer:
         init_dirs: bool = True,
         data_loader: Iterator[np.ndarray] | None = None,
         device: str | torch.device | None = None,
+        attr_losses: Sequence[AttributeLossSpec] = (),
+        predictors: Mapping[str, nn.Module] | None = None,
     ):
         """``device``: CUDA unless given. ``data_loader`` yields NHWC float32
         batches in [-1, 1]; it is required (the image-folder loaders are not
-        ported yet)."""
+        ported yet). ``attr_losses`` and ``predictors`` come from
+        ``losses.registry.build_attr_losses``; the predictors are moved to
+        ``device`` and cast to ``predictor_dtype`` in place (the recon-3d
+        sharing kept)."""
         if (config_path is None) == (config is None):
             raise ValueError("give exactly one of config_path and config")
         self.config = dict(config) if config is not None else read_json(config_path)
@@ -125,7 +135,17 @@ class GeneratorTrainer:
             mixing=tc.get("mixing", 0.0),
             vanilla=mc.get("vanilla", False),
             style_dim=mc.get("latent_size", 512),
+            # predictor remat in g_step: off under bf16 without remat (the
+            # activations fit), on for the f32 and remat memory plans
+            remat_predictors=mc.get(
+                "remat_predictors",
+                not (mc.get("mixed_precision", False) and not mc.get("remat", False)),
+            ),
+            predictor_dtype=tc.get("predictor_dtype", "float32"),
         )
+        self.attr_losses = tuple(attr_losses)
+        self.predictors = cast_predictor_params(dict(predictors or {}), self.step_cfg.predictor_dtype,
+                                                device=self.device)
         seed = tc.get("seed", 0)
         generator = build_generator(self.config, self.spec, device=self.device, seed=seed)
         discriminator = build_discriminator(self.config, device=self.device, seed=seed + 1)
@@ -174,7 +194,8 @@ class GeneratorTrainer:
         if i % tc.get("d_reg_every", 16) == 0:
             metrics.update(self._run("d_reg_step", d_reg_step, state, cfg, real))
         metrics.update(self._run("g_step", g_step, state, cfg, self.spec,
-                                 self._sample_z(tc["batch"])))
+                                 self._sample_z(tc["batch"]), attr_losses=self.attr_losses,
+                                 predictors=self.predictors))
         if i % tc.get("g_reg_every", 4) == 0:
             path_batch = max(cfg.batch // max(cfg.path_batch_shrink, 1), 1)
             metrics.update(self._run("g_reg_step", g_reg_step, state, cfg,

@@ -1,5 +1,5 @@
 """The four phase-1 train steps (port of
-``gan_control_tpu/training/train_step.py`` with ``attr_losses=()``):
+``gan_control_tpu/training/train_step.py``):
 
   - ``d_step``: D logistic loss on G(z) (iid z, no arrangement, G under
     ``no_grad``) against the reals; the gradient is scaled as the reference
@@ -8,7 +8,9 @@
   - ``d_reg_step``: R1 on the unaugmented reals, weighted
     ``r1 / 2 * d_reg_every``.
   - ``g_step``: non-saturating loss of D on G(z), z arranged per mini-batch
-    chunk by ``re_arrange_z``; then the EMA.
+    chunk by ``re_arrange_z``, plus the contrastive attribute losses of the
+    frozen predictor battery (``attr_losses``, from
+    ``losses.registry.build_attr_losses``); then the EMA.
   - ``g_reg_step``: path length on the caller's (shrunk) batch, with style
     mixing when given two z, weighted ``path_regularize * g_reg_every``; then
     the EMA delta correction ``ema += (1 - d) * (p_new - p_old)``, so the EMA
@@ -18,20 +20,33 @@ Each step updates the state in place and returns its metrics as tensors
 (no host sync). The parameters' ``.grad`` hold the step's gradients after it
 returns. Every random input a step draws can be passed explicitly
 (injection ``noise`` per layer, ``inject_index``, the path-length
-``path_noise``); otherwise it comes from ``state.rng``. The contrastive
-attribute losses, ADA and the randomized mini-batch mode are not ported yet.
+``path_noise``); otherwise it comes from ``state.rng``.
+
+The attribute losses: the G's images go to the battery in
+``predictor_dtype``; each predictor's features come back to f32 before any
+distance (the thresholds were calibrated on f32 distances); each mini-batch
+chunk is split into its group's rows and the rest, and the losses are the
+mean over the chunks. Specs with one ``share_key`` (the recon-3d sub-losses)
+read one forward of their shared net. With ``remat_predictors`` each loss
+runs under ``torch.utils.checkpoint``, so the backward re-runs one net at a
+time instead of holding every net's activations. The predictors are frozen:
+their parameters take no gradient, the image does.
+
+ADA and the randomized mini-batch mode are not ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from gan_control_torch.latent.groups import GroupSpec, re_arrange_z
+from gan_control_torch.latent.groups import GroupSpec, re_arrange_z, same_not_same_split
+from gan_control_torch.losses.contrastive import ContrastiveConfig, contrastive_loss
 from gan_control_torch.training.gan_losses import (
     d_logistic_loss,
     g_nonsaturating_loss,
@@ -39,6 +54,29 @@ from gan_control_torch.training.gan_losses import (
     r1_penalty,
 )
 from gan_control_torch.training.state import GANTrainState, ema_decay, ema_update
+from gan_control_torch.utils.precision import battery_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class AttributeLossSpec:
+    """One enabled contrastive loss (one JSON loss block).
+
+    feature_fn: (predictor module, NHWC images in [-1, 1]) -> list of
+      per-layer features, the criterion's embedding last.
+    dist_fn: last-layer features -> [N, N] distance matrix.
+    share_key: specs with one key (the recon-3d sub-losses) run
+      ``shared_forward_fn`` once per step and slice it with ``extract_fn``;
+      ``feature_fn`` stays the standalone path.
+    """
+
+    name: str
+    group: str
+    cfg: ContrastiveConfig
+    feature_fn: Callable[[nn.Module, torch.Tensor], Sequence[torch.Tensor]]
+    dist_fn: Callable[[torch.Tensor], torch.Tensor]
+    share_key: str | None = None
+    shared_forward_fn: Callable[[nn.Module, torch.Tensor], Any] | None = None
+    extract_fn: Callable[[Any], Sequence[torch.Tensor]] | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +94,11 @@ class TrainStepConfig:
     mixing: float = 0.0
     vanilla: bool = False
     style_dim: int = 512
+    # re-run each frozen predictor in the backward instead of holding every
+    # predictor's activations at once
+    remat_predictors: bool = True
+    # the battery's dtype: "float32" (the reference) or "bfloat16"
+    predictor_dtype: str = "float32"
 
     @property
     def num_mini(self) -> int:
@@ -118,19 +161,76 @@ def _frozen(module: nn.Module):
         module.requires_grad_(True)
 
 
+def _attr_losses_for_batch(
+    attr_losses: Sequence[AttributeLossSpec],
+    spec: GroupSpec,
+    predictors: Mapping[str, nn.Module],
+    images: torch.Tensor,
+    num_mini: int,
+    remat: bool = False,
+    dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, dict]:
+    """Sum of the contrastive losses over ``images`` (NHWC), each the mean
+    over the ``num_mini`` mini-batch chunks, and each loss as a metric
+    ``g_<name>``."""
+    images = images.to(dtype)
+    mb = images.shape[0] // num_mini
+
+    def chunked_contrastive(feats, al):
+        loss_al = torch.zeros((), dtype=torch.float32, device=images.device)
+        for k in range(num_mini):
+            chunk = [f[k * mb : (k + 1) * mb].float() for f in feats]
+            same, not_same = zip(*(same_not_same_split(spec, f, al.group) for f in chunk))
+            loss_al = loss_al + contrastive_loss(al.cfg, same, not_same, al.dist_fn)
+        return loss_al / num_mini
+
+    def run(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
+    shared: dict[str, Any] = {}
+    for al in attr_losses:
+        if al.share_key is not None and al.share_key not in shared:
+            shared[al.share_key] = run(al.shared_forward_fn, predictors[al.name], images)
+
+    total = torch.zeros((), dtype=torch.float32, device=images.device)
+    metrics = {}
+    for al in attr_losses:
+        if al.share_key is not None:
+            loss_al = chunked_contrastive(al.extract_fn(shared[al.share_key]), al)
+        else:
+            loss_al = run(lambda pp, imgs, al=al: chunked_contrastive(al.feature_fn(pp, imgs), al),
+                          predictors[al.name], images)
+        metrics[f"g_{al.name}"] = loss_al
+        total = total + loss_al
+    return total, metrics
+
+
 def g_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
            z_list: Sequence[torch.Tensor], *, noise=None,
-           inject_index: int | None = None) -> dict:
+           inject_index: int | None = None,
+           attr_losses: Sequence[AttributeLossSpec] = (),
+           predictors: Mapping[str, nn.Module] | None = None) -> dict:
+    """The adversarial loss plus, with ``attr_losses``, the contrastive
+    losses of the frozen ``predictors`` (loss name -> module); ``g_loss``
+    is the total."""
     with _frozen(state.discriminator):
         img, _ = _gen_images(state, cfg, spec, z_list, noise, inject_index, arrange=True)
         fake_pred, _ = state.discriminator(img)
         adv = g_nonsaturating_loss(fake_pred)
+        total, metrics = adv, {"g_adv_loss": adv.detach()}
+        if attr_losses:
+            attr_total, attr_metrics = _attr_losses_for_batch(
+                attr_losses, spec, predictors, img, cfg.num_mini, remat=cfg.remat_predictors,
+                dtype=battery_dtype(cfg.predictor_dtype))
+            total = total + attr_total
+            metrics.update({k: v.detach() for k, v in attr_metrics.items()})
         state.g_opt.zero_grad(set_to_none=True)
-        adv.backward()
+        total.backward()
     state.g_opt.step()
     ema_update(state.g_ema, state.generator, ema_decay(cfg.batch, cfg.g_moving_average))
     state.step += 1
-    return {"g_adv_loss": adv.detach(), "g_loss": adv.detach()}
+    metrics["g_loss"] = total.detach()
+    return metrics
 
 
 def g_reg_step(state: GANTrainState, cfg: TrainStepConfig, z_list: Sequence[torch.Tensor], *,

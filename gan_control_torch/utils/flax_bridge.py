@@ -97,6 +97,16 @@ def load_flax_params(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     return module
 
 
+def predictor_state_dict_from_flax(loss_name: str, tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A JAX predictor's parameter tree (``init_params`` or
+    ``convert_torch_weights`` output, as numpy) -> the port predictor's
+    ``state_dict``, in the reference checkpoint's names. The inverse of the
+    JAX ``convert_torch_weights`` of the loss's predictor."""
+    from gan_control_torch.losses.predictors import predictor_module
+
+    return predictor_module(loss_name).state_dict_from_flax(tree)
+
+
 def save_flax_checkpoint(ckpt_dir: str | Path, entry: str, module: nn.Module,
                          step: int = 0) -> Path:
     """Write ``{entry: flax tree of module}`` as ``ckpt_dir/%06d.ckpt``, the

@@ -280,6 +280,11 @@ train_slice = {"gan_control_torch.models.discriminator", "gan_control_torch.trai
                "gan_control_torch.training.state", "gan_control_torch.training.train_step",
                "gan_control_torch.trainers.generator_trainer", "gan_control_torch.data.datasets"}
 assert train_slice <= set(mods), sorted(train_slice - set(mods))
+battery = {f"gan_control_torch.losses.{m}" for m in (
+    "contrastive", "registry", "predictors.common", "predictors.resnet", "predictors.arcface",
+    "predictors.hopenet", "predictors.dex_age", "predictors.esr9", "predictors.hair_pspnet",
+    "predictors.face3dmm")} | {"gan_control_torch.utils.weights", "gan_control_torch.utils.precision"}
+assert battery <= set(mods), sorted(battery - set(mods))
 assert len(mods) >= 29, mods
 import torch
 from gan_control_torch.inference.inference import Inference

@@ -1,0 +1,71 @@
+"""The frozen predictor battery on the card against the CPU (``gpu`` marker;
+skip without one).
+
+This file imports neither JAX nor the JAX package; on a machine with a card
+run it with
+
+    python -m pytest --noconftest tests/test_torch_predictors_gpu.py -q
+
+Each of the six nets of the FFHQ battery runs at batch 2, f32 with TF32
+off, on smooth 512-px images, from the same weights on both devices (the
+batch-norm statistics set from those images, and the hair mask centred, by
+``losses.registry.calibrate_battery``). The comparison is ``chip_smoke``'s:
+every returned layer to 1e-3 of its largest entry, the image gradient of a
+seeded projection to 5e-2 in relative L2 norm, a hair mask pixel flipped
+only at the threshold (logits within 1e-2 of max).
+"""
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+
+from gan_control_torch.losses.registry import (  # noqa: E402
+    build_attr_losses,
+    calibrate_battery,
+    distinct_predictors,
+)
+
+FFHQ = json.loads((REPO / "gan_control_tpu" / "configs" / "ffhq.json").read_text())
+NETS = ("embedding_loss", "orientation_loss", "age_loss", "expression_loss", "hair_loss", "recon_3d_loss")
+
+
+@pytest.fixture(scope="module")
+def battery():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = np.random.default_rng(0).standard_normal((4, 3, 32, 32)).astype(np.float32) * 0.5
+    images = F.interpolate(torch.from_numpy(small), size=(512, 512), mode="bilinear",
+                           align_corners=False).permute(0, 2, 3, 1).contiguous()
+    _, predictors = build_attr_losses(FFHQ["training_config"], device="cpu", seed=3)
+    calibrate_battery(predictors, images)
+    yield distinct_predictors(predictors), images
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", NETS)
+def test_predictor_card_matches_cpu(battery, name):
+    nets, images = battery
+    errs = chip_smoke.predictor_card_vs_cpu(name, nets[name], images[:2], seed=NETS.index(name))
+    assert errs["layers"] <= chip_smoke.PREDICTOR_RTOL
+    assert errs["grad_rel_l2"] <= chip_smoke.PREDICTOR_GRAD_REL_L2
+
+
+@pytest.mark.gpu
+def test_build_attr_losses_defaults_to_the_card(battery):
+    specs, predictors = build_attr_losses({"expression_loss": FFHQ["training_config"]["expression_loss"]})
+    assert [s.name for s in specs] == ["expression_loss"]
+    assert all(p.is_cuda for p in predictors["expression_loss"].parameters())

@@ -84,10 +84,10 @@ def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def _close_trees(got: dict, want: dict, skip=()):
+def _close_trees(got: dict, want: dict, skip=(), rel=REL):
     """Every tensor of ``want`` (numpy, state_dict names) against ``got``,
-    to REL of its largest entry. A parameter the loss does not reach has no
-    gradient on the port's side and a zero one on the JAX side."""
+    to ``rel`` of its largest entry. A parameter the loss does not reach has
+    no gradient on the port's side and a zero one on the JAX side."""
     names = [n for n in want if not any(s in n for s in skip)]
     assert names
     for n in names:
@@ -97,7 +97,7 @@ def _close_trees(got: dict, want: dict, skip=()):
             continue
         g = got[n].detach().numpy()
         scale = max(float(np.abs(w).max()), 1e-8)
-        np.testing.assert_allclose(g, w, rtol=0, atol=REL * scale, err_msg=n)
+        np.testing.assert_allclose(g, w, rtol=0, atol=rel * scale, err_msg=n)
 
 
 # ---------------------------------------------------------------------------
