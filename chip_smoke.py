@@ -36,11 +36,27 @@ seconds:
     derived from the modules (the battery launches none of the port's
     kernels); finite losses, the six attribute losses of every iteration,
     every parameter of G and D moved, every predictor tensor unchanged and
-    without a gradient; median ms per step kind and per iteration, peak
+    without a gradient, the sample images' launches (iteration 0 saves them)
+    counted apart; median ms per step kind and per iteration, peak
     memory; each predictor's loss forward and image-gradient backward
     (CUDA events) and the battery's share of ``g_step``; the saved
-    ``g_ema`` generates through ``Inference``; the device time by kernel of
-    one more iteration;
+    ``g_ema`` generates through ``Inference``; the median of a few plain
+    iterations (d_step + g_step) between syncs, and the device time by
+    kernel of one more iteration;
+ 7b. training from an image folder: 64 RGB PNGs of 1024 px written from a
+    seed (as FFHQ's images1024x1024); ``python -m
+    gan_control_torch.train_generator`` on configs/ffhq.json at full width,
+    batch 16, with the six-loss battery at random init and
+    ``data_config.path`` at the folder, iteration 0 saving the sample images
+    and the nets; SIGTERM once iteration 3 is logged (exit 0, a checkpoint
+    at the next iteration, the sample grid and the seven group matrices);
+    a second run resumed from that checkpoint (``ckpt_config``) to
+    iteration 8; the checkpoint loaded into a fresh ``GeneratorTrainer``
+    and every parameter, EMA tensor and Adam moment held equal to the file;
+    the decode route, the loader's ms per batch alone, and the plain
+    iterations' median and device-busy share with the image loader against
+    phase 7's with the synthetic loader. The two runs' logs go to
+    ``build/gan_control_torch/``;
  8. training kernels: every (kernel, shape, dtype, static arguments) that
     ``train(5)`` launched (recorded by hooks on the launchers), in f32 with
     TF32 off and in bf16: the forward and the backward (autograd of a seeded
@@ -84,6 +100,7 @@ import copy
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -527,8 +544,10 @@ def inference_phases(build_root: Path) -> tuple[dict, dict]:
 # training (this slice)
 # ---------------------------------------------------------------------------
 
-def expected_step_counts(g, d) -> dict:
-    """Kernel launches per step kind, derived from the modules.
+def expected_step_counts(g, d, n_groups: int) -> dict:
+    """Kernel launches per step kind, and per ``save_images`` (the EMA
+    generator's forward on the sample grid and on one matrix per each of
+    ``n_groups`` latent groups), derived from the modules.
 
     G: ``n_map`` mapping layers and ``n_conv`` StyledConvs run
     fused_bias_act, ``n_up`` ToRGB skips run blur2x_up. D: ``d_fba``
@@ -568,6 +587,7 @@ def expected_step_counts(g, d) -> dict:
         "d_reg_step": row(d_fba, 2 * d_fba + d_low, 0, 0, 4 * d_sep),
         "g_step": row(g_fba + d_fba, g_fba + d_fba, n_up, n_up, 2 * d_sep),
         "g_reg_step": row(g_fba, 3 * n_conv + n_map, n_up, n_up, 0),
+        "save_images": row((1 + n_groups) * g_fba, 0, (1 + n_groups) * n_up, 0, 0),
     }
 
 
@@ -659,9 +679,10 @@ def battery_timing(trainer, g_step_ms: float) -> None:
         f"together {f + b:.2f} ms = {100 * (f + b) / g_step_ms:.1f}% of the {g_step_ms:.2f} ms median g_step")
 
 
-def train_phase(build_root: Path) -> tuple[Counter, dict]:
+def train_phase(build_root: Path) -> tuple[Counter, dict, dict]:
     """Phase 7. Returns the recorded launches of ``train(5)`` by
-    (kernel, shape, dtype, static args) and the counters read after it."""
+    (kernel, shape, dtype, static args), the counters read after it, and
+    the plain iterations' ms with the synthetic loader."""
     from gan_control_torch.data.datasets import synthetic_data_loader
     from gan_control_torch.inference.inference import Inference
     from gan_control_torch.losses.registry import build_attr_losses, distinct_predictors
@@ -690,7 +711,7 @@ def train_phase(build_root: Path) -> tuple[Counter, dict]:
         if len(trainer.attr_losses) != 6 or len(nets) != 6:
             fail("configs/ffhq.json should give six losses on six nets")
         pred_before = {n: {k: v.detach().clone() for k, v in m.state_dict().items()} for n, m in nets.items()}
-        per_kind = expected_step_counts(st.generator, st.discriminator)
+        per_kind = expected_step_counts(st.generator, st.discriminator, len(trainer.spec.groups))
         log(f"train: expected launches per step kind {per_kind}")
 
     with Phase("train dry run"):
@@ -699,14 +720,15 @@ def train_phase(build_root: Path) -> tuple[Counter, dict]:
         if not all(math.isfinite(v) for v in m.values()):
             fail(f"dry run losses not finite: {m}")
 
-    # per step kind: the counters' change over each step call
-    by_kind: dict[str, list[dict]] = {k: [] for k in gt.STEP_KINDS}
+    # per step kind, and per sample-image save: the counters' change over
+    # each call
+    by_kind: dict[str, list[dict]] = {k: [] for k in (*gt.STEP_KINDS, "save_images")}
     originals = {k: getattr(gt, k) for k in gt.STEP_KINDS}
 
-    def counted(kind):
+    def counted(kind, fn):
         def run(*a, **kw):
             before = kernels.launch_counts()
-            out = originals[kind](*a, **kw)
+            out = fn(*a, **kw)
             after = kernels.launch_counts()
             by_kind[kind].append({n: after[n] - before[n] for n in after})
             return out
@@ -717,7 +739,8 @@ def train_phase(build_root: Path) -> tuple[Counter, dict]:
     seen: Counter = Counter()
     with Phase("train main path"):
         for k in gt.STEP_KINDS:
-            setattr(gt, k, counted(k))
+            setattr(gt, k, counted(k, originals[k]))
+        trainer.save_images = counted("save_images", trainer.save_images)
         remove = install_launch_recorder(seen)
         trainer.profile_steps = True
         torch.cuda.reset_peak_memory_stats()
@@ -732,15 +755,19 @@ def train_phase(build_root: Path) -> tuple[Counter, dict]:
             remove()
             for k in gt.STEP_KINDS:
                 setattr(gt, k, originals[k])
+            del trainer.save_images
         log(f"train main path: launches over train({TRAIN_ITERS}) {counts}; gradient layout copies {copies}")
         for kind in gt.STEP_KINDS:
             for got in by_kind[kind]:
                 if got != per_kind[kind]:
                     fail(f"{kind}: launches {got}, expected {per_kind[kind]}")
+        for got in by_kind["save_images"]:
+            if got != per_kind["save_images"]:
+                fail(f"save_images: launches {got}, expected {per_kind['save_images']}")
         runs = {k: len(v) for k, v in by_kind.items()}
-        if runs != {"d_step": 5, "d_reg_step": 1, "g_step": 5, "g_reg_step": 2}:
+        if runs != {"d_step": 5, "d_reg_step": 1, "g_step": 5, "g_reg_step": 2, "save_images": 1}:
             fail(f"step kinds run {runs}")
-        want_total = {n: sum(runs[k] * per_kind[k][n] for k in gt.STEP_KINDS) for n in KERNELS}
+        want_total = {n: sum(runs[k] * per_kind[k][n] for k in runs) for n in KERNELS}
         if counts != want_total:
             fail(f"launch counts {counts}, expected {want_total}")
         recorded = {n: sum(c for key, c in seen.items() if key[0] == n) for n in KERNELS}
@@ -782,12 +809,17 @@ def train_phase(build_root: Path) -> tuple[Counter, dict]:
 
     with Phase("train profile"):
         trainer.profile_steps = False
-        for label, i in (("train iteration 1 (d_step, g_step)", 1),
-                         ("train iteration 0 (all four steps)", 0)):
-            t0 = time.perf_counter()
-            trainer.one_iteration(i)
-            torch.cuda.synchronize()
-            profile_phase(label, lambda i=i: trainer.one_iteration(i), (time.perf_counter() - t0) * 1e3)
+        times = plain_iteration_ms(trainer)
+        synthetic = {"times": times, "median": statistics.median(times)}
+        log(f"train plain iteration (d_step + g_step) with the synthetic loader: median "
+            f"{synthetic['median']:.2f} ms ({[round(t, 2) for t in times]})")
+        profile_phase("train iteration 1 (d_step, g_step)", lambda: trainer.one_iteration(1),
+                      synthetic["median"])
+        t0 = time.perf_counter()
+        trainer.one_iteration(0)
+        torch.cuda.synchronize()
+        profile_phase("train iteration 0 (all four steps)", lambda: trainer.one_iteration(0),
+                      (time.perf_counter() - t0) * 1e3)
 
     with Phase("train g_ema inference"):
         ckpts = sorted(p.name for p in (trainer.save_dir / "checkpoint").iterdir())
@@ -799,9 +831,269 @@ def train_phase(build_root: Path) -> tuple[Counter, dict]:
             fail(f"bad g_ema output {tuple(img.shape)}")
         log(f"g_ema through Inference: {tuple(img.shape)} {img.dtype}, checkpoint {inf.ckpt_iter}, "
             f"mean {float(img.mean()):.4f}")
+    trainer.close()
     del trainer, inf, img
     torch.cuda.empty_cache()
-    return seen, counts
+    return seen, counts, synthetic
+
+
+PLAIN_ITERS = (1, 2, 3, 5)  # d_step + g_step only (no R1, no path length)
+
+
+def plain_iteration_ms(trainer) -> list[float]:
+    """Host ms of each of the plain iterations ``PLAIN_ITERS``, each from a
+    synced device to a synced device, the batch taken from the trainer's
+    loader (through its prefetching feeder) inside the timed span."""
+    times = []
+    for i in PLAIN_ITERS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.one_iteration(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+FOLDER_IMAGES = 64
+FOLDER_PX = 1024
+PREEMPT_AFTER = 3  # SIGTERM once this iteration's metrics are logged
+RESUME_TO = 8
+
+
+def write_image_folder(root: Path, n: int, px: int, seed: int = 0) -> Path:
+    """``n`` RGB PNGs of ``px`` pixels, as FFHQ's images1024x1024: smooth
+    random faces-sized pictures (seeded low-resolution noise, upsampled
+    bicubically, plus fine noise), written by threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    coarse = (rng.random((n, 16, 16, 3)) * 255).astype(np.uint8)
+    fine_seeds = rng.integers(0, 2**31, n)
+
+    def one(i):
+        img = np.asarray(Image.fromarray(coarse[i]).resize((px, px), Image.BICUBIC), np.int16)
+        img = img + np.random.default_rng(int(fine_seeds[i])).integers(-8, 9, img.shape, dtype=np.int16)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(root / f"{i:05d}.png")
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(n)))
+    return root
+
+
+class CliRun:
+    """``python -m gan_control_torch.train_generator`` in a subprocess, its
+    log read line by line on a thread (kept in ``lines``)."""
+
+    def __init__(self, config_path: Path, iters: int, log_path: Path):
+        import queue
+        import threading
+
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "gan_control_torch.train_generator", "--config_path",
+             str(config_path), "--iters", str(iters)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO)
+        self.lines: list[str] = []
+        self._queue: queue.Queue = queue.Queue()
+        self._log = open(log_path, "w")
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self._log.write(line)
+            self._log.flush()
+            self._queue.put(line)
+        self._queue.put(None)
+
+    def wait_for(self, pattern: str, timeout: float):
+        import queue
+        import re
+
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            try:
+                line = self._queue.get(timeout=1)
+            except queue.Empty:
+                continue
+            if line is None:
+                break
+            self.lines.append(line)
+            m = re.search(pattern, line)
+            if m:
+                return m
+        self.kill()
+        fail(f"train_generator: no line matching {pattern!r}; last lines:\n" + "".join(self.lines[-20:]))
+
+    def finish(self, timeout: float) -> int:
+        import queue
+
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            fail("train_generator did not exit in time")
+        while True:
+            try:
+                line = self._queue.get(timeout=10)
+            except queue.Empty:
+                break
+            if line is None:
+                break
+            self.lines.append(line)
+        self._log.close()
+        return rc
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def log_time(line: str) -> float:
+    """Seconds of a log line's ``%(asctime)s`` stamp (same day)."""
+    stamp = line.split(" ")[1]  # HH:MM:SS,mmm
+    h, m, rest = stamp.split(":")
+    sec, ms = rest.split(",")
+    return int(h) * 3600 + int(m) * 60 + int(sec) + int(ms) / 1e3
+
+
+def image_folder_phase(build_root: Path, synthetic: dict) -> None:
+    """Phase 7b: FFHQ-512 training from an image folder through the port's
+    command line, preempted by SIGTERM, resumed from its checkpoint, and
+    the checkpoint held against a fresh trainer's state; then the loader
+    alone and plain iterations with the image loader against phase 7's
+    synthetic ones (``synthetic``: its plain-iteration ms and busy share)."""
+    from gan_control_torch.data import native_loader
+    from gan_control_torch.data.datasets import get_data_loader
+    from gan_control_torch.losses.registry import build_attr_losses
+    from gan_control_torch.trainers import generator_trainer as gt
+    from gan_control_torch.utils import checkpoint as ckpt_lib
+    from gan_control_torch.utils.flax_bridge import flax_to_state_dict, load_gan_state
+
+    with Phase("folder write"):
+        folder = write_image_folder(build_root / "ffhq_images1024x1024", FOLDER_IMAGES, FOLDER_PX)
+        log(f"image folder: {FOLDER_IMAGES} RGB PNGs of {FOLDER_PX} px, "
+            f"{sum(p.stat().st_size for p in folder.iterdir()) / 2**20:.1f} MiB")
+    config = json.loads((CONFIGS / "ffhq.json").read_text())
+    config["results_dir"] = str(build_root / "folder_results")
+    config["data_config"]["path"] = str(folder)
+    tc = config["training_config"]
+    # iteration 0 saves the sample images and the nets; every iteration logs
+    tc.update(save_images_interval=1000, save_nets_interval=1000, log_every=1)
+    cfg_path = build_root / "folder_config.json"
+    cfg_path.write_text(json.dumps(config))
+
+    with Phase("folder train, preempted"):
+        run = CliRun(cfg_path, 1000, build_root / "train_generator_preempted.log")
+        save_dir = Path(run.wait_for(r"save dir: (\S+)", 300)[1])
+        run.wait_for(rf"iter {PREEMPT_AFTER}: ", 600)
+        run.proc.send_signal(signal.SIGTERM)
+        warn = run.wait_for(r"checkpointing at iter (\d+)", 120)
+        at = int(warn[1])
+        saved = run.wait_for(rf"saved (\S+{at:06d}\.ckpt)", 300)
+        rc = run.finish(120)
+        if rc != 0:
+            fail(f"the preempted train_generator exited {rc}")
+        ckpt = save_dir / "checkpoint" / f"{at:06d}.ckpt"
+        if not ckpt.exists() or at <= PREEMPT_AFTER:
+            fail(f"no checkpoint at the iteration after the signal: {ckpt}")
+        save_s = log_time(saved.string) - log_time(warn.string)
+        size = ckpt.stat().st_size
+        log(f"folder train: SIGTERM after iteration {PREEMPT_AFTER} was logged; exit 0; checkpoint "
+            f"{ckpt.name} ({size / 2**20:.1f} MiB), preemption save {save_s * 1e3:.0f} ms (log stamps)")
+        want = ["samples", *json.loads(cfg_path.read_text())["training_config"]["sub_groups_dict"]]
+        missing = [g for g in want if not (save_dir / "images" / g / "000000.jpg").exists()]
+        if missing or len(want) != 8:
+            fail(f"sample images missing: {missing} of {want}")
+        log(f"folder train: sample grid and {len(want) - 1} group matrices written at iteration 0")
+
+    with Phase("folder train, resumed"):
+        config["ckpt_config"] = {"enabled": True, "ckpt": str(ckpt)}
+        cfg_path.write_text(json.dumps(config))
+        run = CliRun(cfg_path, RESUME_TO, build_root / "train_generator_resumed.log")
+        start = int(run.wait_for(r"resumed from \S+: start_iter (\d+)", 300)[1])
+        run.wait_for(rf"iter {RESUME_TO - 1}: ", 600)
+        rc = run.finish(300)
+        if rc != 0 or start != at:
+            fail(f"the resumed train_generator: exit {rc}, start_iter {start} (checkpoint step {at})")
+        finals = sorted((build_root / "folder_results").glob(f"*/checkpoint/{RESUME_TO:06d}.ckpt"))
+        if not finals:
+            fail(f"the resumed run left no checkpoint at {RESUME_TO}")
+        log(f"folder train: resumed at start_iter {start}, trained to {RESUME_TO}, exit 0")
+
+    with Phase("folder checkpoint against a fresh trainer"):
+        config.pop("ckpt_config")
+        specs, predictors = build_attr_losses(config["training_config"], device="cuda")
+        trainer = gt.GeneratorTrainer(config=config, init_dirs=False, device="cuda",
+                                      attr_losses=specs, predictors=predictors)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = ckpt_lib.load_state_dict(ckpt)
+        t_read = time.perf_counter()
+        load_gan_state(trainer.state, tree)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st = trainer.state
+        for key, module in (("g_params", st.generator), ("d_params", st.discriminator),
+                            ("g_ema", st.g_ema)):
+            want_sd = flax_to_state_dict(tree[key])
+            got_sd = module.state_dict()
+            bad = [k for k in want_sd if not torch.equal(got_sd[k].cpu(), want_sd[k])]
+            if bad or set(got_sd) != set(want_sd):
+                fail(f"{key}: restored tensors differ from the file: {bad[:3]}")
+        n_moments = 0
+        for key, opt, module in (("g_opt_state", st.g_opt, st.generator),
+                                 ("d_opt_state", st.d_opt, st.discriminator)):
+            inner = tree[key]["0"]
+            mu, nu = flax_to_state_dict(inner["mu"]), flax_to_state_dict(inner["nu"])
+            for name, p in module.named_parameters():
+                s_ = opt.state[p]
+                if not (torch.equal(s_["exp_avg"].cpu(), mu[name]) and torch.equal(s_["exp_avg_sq"].cpu(), nu[name])
+                        and int(s_["step"]) == int(inner["count"])):
+                    fail(f"{key}: Adam state of {name} differs from the file")
+                n_moments += 2
+        if st.step != at or float(st.mean_path_length) != float(tree["mean_path_length"]):
+            fail(f"step {st.step} / path-length mean differ from the file")
+        log(f"folder resume: every parameter, EMA tensor and {n_moments} Adam moments equal the file "
+            f"(step {st.step}, count g {int(tree['g_opt_state']['0']['count'])} "
+            f"d {int(tree['d_opt_state']['0']['count'])}); resume {(t1 - t0) * 1e3:.0f} ms "
+            f"(read and decode {(t_read - t0) * 1e3:.0f} ms, load to the card {(t1 - t_read) * 1e3:.0f} ms)")
+
+    with Phase("folder loader and iterations"):
+        route = "native (C++, native/gcdata.cpp)" if native_loader.available() else "PIL (Python loader)"
+        # the config's decode threads, then one per core
+        for k, workers in enumerate(dict.fromkeys((config["data_config"]["workers"], os.cpu_count()))):
+            data_config = dict(config["data_config"], workers=workers)
+            loader = get_data_loader(data_config, 16, 512)
+            next(loader)
+            n = 8
+            t0 = time.perf_counter()
+            for _ in range(n):
+                batch = next(loader)
+            per_batch = (time.perf_counter() - t0) * 1e3 / n
+            loader.close()
+            log(f"folder loader: decode route {route}; {per_batch:.1f} ms per batch of 16 at 512 px alone "
+                f"(mean over {n} after a first; {workers} workers, {FOLDER_PX}-px PNGs); batch "
+                f"{tuple(batch.shape)} in [{batch.min():.3f}, {batch.max():.3f}]")
+            if batch.shape != (16, 512, 512, 3) or not np.isfinite(batch).all() or abs(batch).max() > 1.0:
+                fail("the folder loader's batch is wrong")
+            trainer.close()
+            trainer.loader = get_data_loader(data_config, 16, 512)
+            trainer.next_real()  # start the feeder: the first batch is set-up
+            times = plain_iteration_ms(trainer)
+            med = statistics.median(times)
+            if k == 0:
+                profile_phase("train plain iteration with the image loader",
+                              lambda: trainer.one_iteration(PLAIN_ITERS[0]), med)
+            log(f"folder iterations: plain iteration (d_step + g_step) median {med:.2f} ms with the image "
+                f"loader at {workers} workers ({[round(t, 2) for t in times]}) against "
+                f"{synthetic['median']:.2f} ms with the synthetic loader "
+                f"({[round(t, 2) for t in synthetic['times']]})")
+        trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
 
 
 def kernel_case(name: str, shape, dtype, args, gen):
@@ -1225,7 +1517,8 @@ def main() -> None:
         log(f"inference totals {n}: launches {infer_counts[n]} " + totals_text(infer_totals[n]))
 
     # 7-9. training
-    seen, counts = train_phase(build_root)
+    seen, counts, synthetic = train_phase(build_root)
+    image_folder_phase(build_root, synthetic)
     with Phase("train kernels"):
         totals = train_kernel_phase(seen)
         blur_sep_variant_check()

@@ -12,12 +12,14 @@ with an autograd Function whose backward is a kernel too. On a CPU tensor
 each wrapper runs its plain PyTorch version; on a CUDA tensor it launches
 the kernel.
 
-Ported: controlled generation (``inference``), and the phase-1 train
-step and trainer (``training``, ``trainers``) with the contrastive
-attribute losses of the FFHQ configuration (``losses``: the criterion, the
-registry and six frozen predictors, which take the reference checkpoints'
-``state_dict`` names and run on cuDNN). Not yet: the AFHQ and MetFaces
-predictors, the randomized mini-batch mode, ADA, phase 2.
+Ported: controlled generation (``inference``), and phase-1 training
+(``training``, ``trainers``, the ``train_generator`` command line) from
+image folders (``data``) with the contrastive attribute losses of the FFHQ
+configuration (``losses``: the criterion, the registry and six frozen
+predictors, which take the reference checkpoints' ``state_dict`` names and
+run on cuDNN), both mini-batch modes, sample images (``evaluation``) and
+whole-state checkpoints that either package resumes. Not yet: the AFHQ and
+MetFaces predictors, ADA, transfer learning, evaluation, phase 2.
 
 The package imports neither JAX nor ``gan_control_tpu``.
 """

@@ -7,14 +7,16 @@ split into contiguous per-attribute sub-vectors; the split mapping network
 and the controller heads address them through this table, the phase-1 G
 step arranges each mini-batch so that even/odd row pairs share one group's
 sub-latent, and the contrastive losses split the predictors' features by
-those slots. The randomized arrangement mode and the noise arrangement are
-not ported yet.
+those slots. The ``same_for_same_id`` noise arrangement
+(``re_arrange_inject_noise``) and the randomized mini-batch mode
+(``random_arrangement``: a fresh slot placement per step as an
+:class:`Arrangement` of arrays) are ported too.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -152,6 +154,20 @@ def re_arrange_z(spec: GroupSpec, z_list: Sequence[torch.Tensor]) -> list[torch.
     return out
 
 
+def re_arrange_inject_noise(
+    spec: GroupSpec, noises: Sequence[torch.Tensor], group_name: str = "id"
+) -> list[torch.Tensor]:
+    """Copy each layer's injection noise ([B, H, W, 1]) from the even row to
+    the odd row of every pair inside one group's slots (the
+    ``same_for_same_id`` noise mode)."""
+    g = spec.group(group_name)
+    src = np.arange(spec.mini_batch)
+    for i in range(g.mb_start, g.mb_end, 2):
+        if i + 1 < g.mb_end:
+            src[i + 1] = i
+    return [n[torch.as_tensor(src, device=n.device)] for n in noises]
+
+
 def same_not_same_split(
     spec: GroupSpec, features: torch.Tensor, group_name: str
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -182,3 +198,120 @@ def insert_group_latent(
     target = out[..., g.latent_start : g.latent_end]
     target.copy_(torch.broadcast_to(group_latent.to(out.dtype), target.shape))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The randomized mini-batch mode: a fresh placement per step, as arrays
+# ---------------------------------------------------------------------------
+
+
+def random_placements(spec: GroupSpec, rng: np.random.Generator) -> dict[str, list[int]]:
+    """A fresh random slot placement for every group, as {group: sorted even
+    slot starts}; a start s places the arranged pair (s, s + 1). Draw for
+    draw as the JAX function: a group with a ``count_range`` draws an even
+    size from ``arange(lo, hi + 2, 2)``, then ``size // 2`` even starts
+    without replacement, independently of the other groups (placements may
+    overlap and need not cover the mini-batch); a group without one keeps
+    its static placement."""
+    placements: dict[str, list[int]] = {}
+    even_slots = np.arange(0, spec.mini_batch, 2)
+    for g in spec.groups:
+        if g.count_range is None:
+            placements[g.name] = (list(range(g.mb_start, g.mb_end, 2))
+                                  if g.mb_start is not None else [])
+            continue
+        lo, hi = g.count_range
+        size = int(rng.choice(np.arange(lo, hi + 2, 2)))
+        starts: list[int] = []
+        if size > 0:
+            starts = sorted(int(v) for v in rng.choice(even_slots, size // 2, replace=False))
+        placements[g.name] = starts
+    return placements
+
+
+@dataclasses.dataclass
+class Arrangement:
+    """One mini-batch arrangement as arrays (numpy on the host, or tensors
+    after :meth:`to`); the step applies it to every mini-batch chunk.
+
+    pair_src: [mini_batch] int — row -> source row of the share-copy.
+    share_mask: [mini_batch, style_dim] bool — latent positions copied from
+      ``pair_src`` (each pair's odd row, its group's latent columns).
+    noise_pair_src: [mini_batch] int — the pairing of the noise group
+      ('id') only, for ``same_for_same_id`` noise.
+    same_pair_masks: {group: [mini_batch, mini_batch] bool} — entry
+      [odd, even] of each of the group's pairs.
+    not_same_pair_masks: {group: [mini_batch, mini_batch] bool} — the rows
+      outside every pair of the group, in batch order, paired by adjacency,
+      entry [later, earlier].
+    """
+
+    pair_src: Any
+    share_mask: Any
+    noise_pair_src: Any
+    same_pair_masks: dict
+    not_same_pair_masks: dict
+
+    def to(self, device: torch.device | str) -> "Arrangement":
+        """The same arrangement as tensors on ``device``."""
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        return Arrangement(
+            pair_src=t(self.pair_src), share_mask=t(self.share_mask),
+            noise_pair_src=t(self.noise_pair_src),
+            same_pair_masks={k: t(v) for k, v in self.same_pair_masks.items()},
+            not_same_pair_masks={k: t(v) for k, v in self.not_same_pair_masks.items()},
+        )
+
+
+def arrangement_from_placements(spec: GroupSpec, placements: Mapping[str, Sequence[int]],
+                                noise_group: str = "id") -> Arrangement:
+    """{group: even slot starts} as an :class:`Arrangement` of numpy arrays."""
+    n = spec.mini_batch
+    pair_src = np.arange(n, dtype=np.int32)
+    share = np.zeros((n, spec.style_dim), dtype=bool)
+    noise_src = np.arange(n, dtype=np.int32)
+    same_masks, not_same_masks = {}, {}
+    for g in spec.groups:
+        m = np.zeros((n, n), dtype=bool)
+        in_group = np.zeros((n,), dtype=bool)
+        for s0 in placements.get(g.name, []):
+            m[s0 + 1, s0] = True
+            in_group[s0] = in_group[s0 + 1] = True
+            pair_src[s0 + 1] = s0
+            share[s0 + 1, g.latent_start : g.latent_end] = True
+            if g.name == noise_group:
+                noise_src[s0 + 1] = s0
+        same_masks[g.name] = m
+        comp = np.flatnonzero(~in_group)
+        nm = np.zeros((n, n), dtype=bool)
+        for a, b in zip(comp[0::2], comp[1::2]):
+            nm[max(a, b), min(a, b)] = True
+        not_same_masks[g.name] = nm
+    return Arrangement(pair_src=pair_src, share_mask=share, noise_pair_src=noise_src,
+                       same_pair_masks=same_masks, not_same_pair_masks=not_same_masks)
+
+
+def arrangement_from_spec(spec: GroupSpec, noise_group: str = "id") -> Arrangement:
+    """The static spec's placement as an :class:`Arrangement`."""
+    placements = {g.name: (list(range(g.mb_start, g.mb_end, 2)) if g.mb_start is not None else [])
+                  for g in spec.groups}
+    return arrangement_from_placements(spec, placements, noise_group=noise_group)
+
+
+def random_arrangement(spec: GroupSpec, rng: np.random.Generator,
+                       noise_group: str = "id") -> Arrangement:
+    """A fresh random placement for one step (see :func:`random_placements`)."""
+    return arrangement_from_placements(spec, random_placements(spec, rng), noise_group=noise_group)
+
+
+def apply_arrangement_z(arr: Arrangement, z: torch.Tensor) -> torch.Tensor:
+    """``re_arrange_z`` by the arrangement's tables, for one z (the
+    randomized mode has no style mixing)."""
+    src = torch.as_tensor(arr.pair_src, device=z.device).long()
+    mask = torch.as_tensor(arr.share_mask, device=z.device)
+    return torch.where(mask, z[src], z)
+
+
+def apply_arrangement_noise(arr: Arrangement, noises: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """``re_arrange_inject_noise`` by the arrangement's tables."""
+    return [n[torch.as_tensor(arr.noise_pair_src, device=n.device).long()] for n in noises]

@@ -14,8 +14,8 @@ other pairs] (rows 2i, 2i+1 are a pair), the loss is, per layer:
 everything else above upper_thres; 'not_same_as_last_layer' does the
 reverse. The masks are static: they and their counts come from the
 mini-batch arrangement, so each mean is ``sum(x * mask) / count``.
-
-``contrastive_loss_masked`` (the randomized mini-batch mode) is not ported.
+``contrastive_loss_masked`` (the randomized mini-batch mode) takes the pair
+masks as tensors, fresh each step, with the features in batch order.
 """
 
 from __future__ import annotations
@@ -193,5 +193,55 @@ def contrastive_loss(
         zero = dist.new_zeros(())
         pull = torch.sum(torch.maximum(dist - lo, zero) * pull_m.to(dist.dtype)) / n_pull
         push = torch.sum(torch.maximum(hi - dist, zero) * push_m.to(dist.dtype)) / n_push
+        total = total + w * (pull + push)
+    return total
+
+
+def contrastive_loss_masked(
+    cfg: ContrastiveConfig,
+    features: Sequence[torch.Tensor],
+    last_layer_dist: Callable[[torch.Tensor], torch.Tensor],
+    same_pairs: torch.Tensor,
+    not_same_pairs: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`contrastive_loss` with the pair bookkeeping as [n, n] bool
+    masks (``same_pairs``: the target group's pairs; ``not_same_pairs``:
+    the pairs of the rows outside them) over ``features`` in batch order.
+    Every distance is symmetric, so counting each unordered row pair once
+    (the strict lower triangle) equals the static reorder-then-triangle
+    bookkeeping. A mean over an empty mask is 0."""
+    n_layers = len(features)
+    if len(cfg.weights) != n_layers:
+        raise ValueError(f"{len(cfg.weights)} layer weights for {n_layers} feature layers")
+    n = features[0].shape[0]
+    device = features[0].device
+    valid = torch.as_tensor(strict_lower_mask(n), device=device)
+    same_pairs = torch.as_tensor(same_pairs, device=device) & valid
+    not_same_pairs = torch.as_tensor(not_same_pairs, device=device) & valid
+
+    def masked_mean(x, mask):
+        m = mask.to(x.dtype)
+        return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for li in range(n_layers):
+        w = cfg.weights[li]
+        if w == 0:
+            continue
+        is_last = li == n_layers - 1
+        dist = last_layer_dist(features[li]) if is_last or cfg.intermediate_as_last \
+            else pairwise_l1(features[li])
+        lo = cfg.last_lower_thres if is_last else cfg.lower_thres[li]
+        hi = cfg.last_upper_thres if is_last else cfg.upper_thres[li]
+        focus = cfg.focus_on[li]
+        if focus == "same_as_last_layer":
+            pull_m, push_m = same_pairs, valid & ~same_pairs
+        elif focus == "not_same_as_last_layer":
+            pull_m, push_m = not_same_pairs, valid & ~not_same_pairs
+        else:
+            raise ValueError(f"focus_on[{li}] = {focus}")
+        zero = dist.new_zeros(())
+        pull = masked_mean(torch.maximum(dist - lo, zero), pull_m)
+        push = masked_mean(torch.maximum(hi - dist, zero), push_m)
         total = total + w * (pull + push)
     return total

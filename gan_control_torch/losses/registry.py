@@ -26,7 +26,7 @@ from gan_control_torch.losses.predictors.face3dmm import extract_feature
 from gan_control_torch.training.train_step import AttributeLossSpec
 from gan_control_torch.utils.device import resolve_device
 from gan_control_torch.utils.logging_utils import get_logger
-from gan_control_torch.utils.precision import battery_dtype, predictor_precision_ctx
+from gan_control_torch.utils.precision import battery_dtype, with_predictor_precision
 from gan_control_torch.utils.weights import load_pretrained
 
 _log = get_logger(__name__)
@@ -110,10 +110,8 @@ def build_attr_losses(
     prec_cfg = training_config.get("predictor_precision")
 
     def with_precision(fn):
-        def wrapped(module, images):
-            with predictor_precision_ctx(prec_cfg, fallback="default"):
-                return fn(module, images)
-        return wrapped
+        # forward and image-gradient backward alike
+        return with_predictor_precision(fn, prec_cfg, fallback="default")
 
     specs: list[AttributeLossSpec] = []
     predictors: dict[str, nn.Module] = {}

@@ -131,6 +131,7 @@ class Generator(nn.Module):
         self.size = size
         self.style_dim = style_dim
         self.model_mode = model_mode
+        self.noise_mode = noise_mode
         self.dtype = dtype
         channels = channel_table(channel_multiplier, max_channels)
 

@@ -36,6 +36,18 @@ def ema_update(ema: nn.Module, model: nn.Module, decay: float) -> None:
         e.mul_(decay).add_(p.to(e.dtype), alpha=1.0 - decay)
 
 
+def optimizer_step(opt: torch.optim.Optimizer) -> None:
+    """``opt.step()``, with a zero gradient for every parameter the loss did
+    not reach: optax updates every leaf each step, so with this every
+    parameter's Adam step count is the optimizer's one count (with b1 = 0
+    such a parameter does not move; its second moment decays)."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    opt.step()
+
+
 @dataclasses.dataclass
 class GANTrainState:
     """The phase-1 training state. The steps update it in place."""

@@ -8,9 +8,13 @@
   - ``d_reg_step``: R1 on the unaugmented reals, weighted
     ``r1 / 2 * d_reg_every``.
   - ``g_step``: non-saturating loss of D on G(z), z arranged per mini-batch
-    chunk by ``re_arrange_z``, plus the contrastive attribute losses of the
-    frozen predictor battery (``attr_losses``, from
-    ``losses.registry.build_attr_losses``); then the EMA.
+    chunk by ``re_arrange_z`` (or, in the randomized mini-batch mode, by the
+    step's ``arrangement``: one z, no mixing), plus the contrastive
+    attribute losses of the frozen predictor battery (``attr_losses``, from
+    ``losses.registry.build_attr_losses``); then the EMA. Under the
+    ``same_for_same_id`` noise mode, and when the caller passes no
+    ``noise``, the injection noise is drawn from ``state.rng`` and arranged
+    per chunk so that the noise group's pairs share it.
   - ``g_reg_step``: path length on the caller's (shrunk) batch, with style
     mixing when given two z, weighted ``path_regularize * g_reg_every``; then
     the EMA delta correction ``ema += (1 - d) * (p_new - p_old)``, so the EMA
@@ -25,14 +29,17 @@ returns. Every random input a step draws can be passed explicitly
 The attribute losses: the G's images go to the battery in
 ``predictor_dtype``; each predictor's features come back to f32 before any
 distance (the thresholds were calibrated on f32 distances); each mini-batch
-chunk is split into its group's rows and the rest, and the losses are the
-mean over the chunks. Specs with one ``share_key`` (the recon-3d sub-losses)
+chunk is split into its group's rows and the rest (with an
+``arrangement``: the criterion reads its pair masks), and the losses are
+the mean over the chunks. Specs with one ``share_key`` (the recon-3d sub-losses)
 read one forward of their shared net. With ``remat_predictors`` each loss
 runs under ``torch.utils.checkpoint``, so the backward re-runs one net at a
 time instead of holding every net's activations. The predictors are frozen:
 their parameters take no gradient, the image does.
 
-ADA and the randomized mini-batch mode are not ported yet.
+Each optimizer step gives a zero gradient to every parameter the loss did
+not reach, as optax updates every leaf, so all parameters share one Adam
+step count (the checkpoint's optax ``count``). ADA is not ported yet.
 """
 
 from __future__ import annotations
@@ -45,15 +52,27 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from gan_control_torch.latent.groups import GroupSpec, re_arrange_z, same_not_same_split
-from gan_control_torch.losses.contrastive import ContrastiveConfig, contrastive_loss
+from gan_control_torch.latent.groups import (
+    Arrangement,
+    GroupSpec,
+    apply_arrangement_noise,
+    apply_arrangement_z,
+    re_arrange_inject_noise,
+    re_arrange_z,
+    same_not_same_split,
+)
+from gan_control_torch.losses.contrastive import (
+    ContrastiveConfig,
+    contrastive_loss,
+    contrastive_loss_masked,
+)
 from gan_control_torch.training.gan_losses import (
     d_logistic_loss,
     g_nonsaturating_loss,
     path_length_penalty,
     r1_penalty,
 )
-from gan_control_torch.training.state import GANTrainState, ema_decay, ema_update
+from gan_control_torch.training.state import GANTrainState, ema_decay, ema_update, optimizer_step
 from gan_control_torch.utils.precision import battery_dtype
 
 
@@ -105,21 +124,33 @@ class TrainStepConfig:
         return max(1, self.batch // self.mini_batch)
 
 
-def _arrange(cfg: TrainStepConfig, spec: GroupSpec, z_list: Sequence[torch.Tensor]):
-    """``re_arrange_z`` within each mini-batch chunk."""
+def _per_chunk(cfg: TrainStepConfig, tensors: Sequence[torch.Tensor], fn) -> list[torch.Tensor]:
+    """``fn`` (a list of tensors -> a list of tensors) on each mini-batch
+    chunk of ``tensors``, the chunks concatenated again."""
     mb = cfg.mini_batch
-    chunks = [re_arrange_z(spec, [z[k * mb : (k + 1) * mb] for z in z_list])
-              for k in range(cfg.num_mini)]
-    return [torch.cat([c[i] for c in chunks], dim=0) for i in range(len(z_list))]
+    chunks = [fn([t[k * mb : (k + 1) * mb] for t in tensors]) for k in range(cfg.num_mini)]
+    return [torch.cat([c[i] for c in chunks], dim=0) for i in range(len(chunks[0]))]
 
 
 def _gen_images(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
-                z_list, noise, inject_index, arrange: bool):
+                z_list, noise, inject_index, arrange: bool,
+                arrangement: Arrangement | None = None):
     styles = list(z_list)
-    if arrange and not cfg.vanilla and spec is not None:
-        styles = _arrange(cfg, spec, styles)
-    return state.generator(styles, return_latents=True, inject_index=inject_index,
-                           noise=noise, generator=state.rng)
+    arranged = arrange and not cfg.vanilla and spec is not None
+    if arranged:
+        if arrangement is not None:
+            styles = _per_chunk(cfg, styles[:1], lambda c: [apply_arrangement_z(arrangement, c[0])])
+        else:
+            styles = _per_chunk(cfg, styles, lambda c: re_arrange_z(spec, c))
+    g = state.generator
+    if arranged and noise is None and g.noise_mode == "same_for_same_id":
+        rng = state.rng
+        noise = [torch.randn(s, generator=rng, device=rng.device).to(styles[0].device)
+                 for s in g.noise_shapes(cfg.batch)]
+        noise = _per_chunk(cfg, noise, lambda c: apply_arrangement_noise(arrangement, c)
+                           if arrangement is not None else re_arrange_inject_noise(spec, c))
+    return g(styles, return_latents=True, inject_index=inject_index, noise=noise,
+             generator=state.rng)
 
 
 def d_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
@@ -133,7 +164,7 @@ def d_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
     loss = d_logistic_loss(real_pred, fake_pred)
     state.d_opt.zero_grad(set_to_none=True)
     (loss * (cfg.num_mini / cfg.mini_batch)).backward()
-    state.d_opt.step()
+    optimizer_step(state.d_opt)
     return {
         "d_loss": loss.detach(),
         "real_score": real_pred.detach().mean(),
@@ -147,7 +178,7 @@ def d_reg_step(state: GANTrainState, cfg: TrainStepConfig, real_img: torch.Tenso
     r1 = r1_penalty(lambda x: d(x)[0], real_img)
     state.d_opt.zero_grad(set_to_none=True)
     (cfg.r1 / 2.0 * r1 * cfg.d_reg_every).backward()
-    state.d_opt.step()
+    optimizer_step(state.d_opt)
     return {"d_r1_loss": r1.detach()}
 
 
@@ -169,10 +200,12 @@ def _attr_losses_for_batch(
     num_mini: int,
     remat: bool = False,
     dtype: torch.dtype = torch.float32,
+    arrangement: Arrangement | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Sum of the contrastive losses over ``images`` (NHWC), each the mean
     over the ``num_mini`` mini-batch chunks, and each loss as a metric
-    ``g_<name>``."""
+    ``g_<name>``. With ``arrangement`` (its tables as tensors on the images'
+    device) the pairs come from its masks instead of the spec's slots."""
     images = images.to(dtype)
     mb = images.shape[0] // num_mini
 
@@ -180,6 +213,11 @@ def _attr_losses_for_batch(
         loss_al = torch.zeros((), dtype=torch.float32, device=images.device)
         for k in range(num_mini):
             chunk = [f[k * mb : (k + 1) * mb].float() for f in feats]
+            if arrangement is not None:
+                loss_al = loss_al + contrastive_loss_masked(
+                    al.cfg, chunk, al.dist_fn, arrangement.same_pair_masks[al.group],
+                    arrangement.not_same_pair_masks[al.group])
+                continue
             same, not_same = zip(*(same_not_same_split(spec, f, al.group) for f in chunk))
             loss_al = loss_al + contrastive_loss(al.cfg, same, not_same, al.dist_fn)
         return loss_al / num_mini
@@ -209,24 +247,29 @@ def g_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
            z_list: Sequence[torch.Tensor], *, noise=None,
            inject_index: int | None = None,
            attr_losses: Sequence[AttributeLossSpec] = (),
-           predictors: Mapping[str, nn.Module] | None = None) -> dict:
+           predictors: Mapping[str, nn.Module] | None = None,
+           arrangement: Arrangement | None = None) -> dict:
     """The adversarial loss plus, with ``attr_losses``, the contrastive
     losses of the frozen ``predictors`` (loss name -> module); ``g_loss``
-    is the total."""
+    is the total. ``arrangement``: the randomized mini-batch mode's
+    placement for this step (numpy or tensors), applied to every chunk."""
+    if arrangement is not None:
+        arrangement = arrangement.to(next(state.generator.parameters()).device)
     with _frozen(state.discriminator):
-        img, _ = _gen_images(state, cfg, spec, z_list, noise, inject_index, arrange=True)
+        img, _ = _gen_images(state, cfg, spec, z_list, noise, inject_index, arrange=True,
+                             arrangement=arrangement)
         fake_pred, _ = state.discriminator(img)
         adv = g_nonsaturating_loss(fake_pred)
         total, metrics = adv, {"g_adv_loss": adv.detach()}
         if attr_losses:
             attr_total, attr_metrics = _attr_losses_for_batch(
                 attr_losses, spec, predictors, img, cfg.num_mini, remat=cfg.remat_predictors,
-                dtype=battery_dtype(cfg.predictor_dtype))
+                dtype=battery_dtype(cfg.predictor_dtype), arrangement=arrangement)
             total = total + attr_total
             metrics.update({k: v.detach() for k, v in attr_metrics.items()})
         state.g_opt.zero_grad(set_to_none=True)
         total.backward()
-    state.g_opt.step()
+    optimizer_step(state.g_opt)
     ema_update(state.g_ema, state.generator, ema_decay(cfg.batch, cfg.g_moving_average))
     state.step += 1
     metrics["g_loss"] = total.detach()
@@ -257,7 +300,7 @@ def g_reg_step(state: GANTrainState, cfg: TrainStepConfig, z_list: Sequence[torc
     before = [p.detach().clone() for p in g.parameters()]
     state.g_opt.zero_grad(set_to_none=True)
     (cfg.path_regularize * cfg.g_reg_every * penalty).backward()
-    state.g_opt.step()
+    optimizer_step(state.g_opt)
     one_minus_d = 1.0 - ema_decay(cfg.batch, cfg.g_moving_average)
     with torch.no_grad():
         for e, p, p_old in zip(state.g_ema.parameters(), g.parameters(), before):

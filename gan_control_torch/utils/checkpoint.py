@@ -14,12 +14,20 @@ Anything else raises, including flax's chunked leaves
 (``__msgpack_chunked_array__``), which flax writes only for a leaf over
 2**30 bytes; no array of this ~30M-parameter model comes near that.
 A ``bfloat16`` leaf (numpy has no such type) is widened exactly to float32.
+
+Periodic saves can overlap training: :func:`save_checkpoint_async` takes a
+tree that is already on the host, and one worker thread encodes and writes
+it (in order); :func:`wait_pending_saves` drains the queue and raises the
+first failure.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
+import re
 import struct
+import threading
 from pathlib import Path
 from typing import Any
 
@@ -45,6 +53,14 @@ def latest_checkpoint(ckpt_dir: str | Path) -> Path | None:
     return files[-1] if files else None
 
 
+def parse_step(path: str | Path, default: int = 0) -> int:
+    """The training step that a checkpoint's file name encodes; ``default``
+    for a non-numeric name (``best_fid.ckpt``), where a resume keeps the
+    configured ``start_iter``."""
+    m = re.match(r"(\d+)", Path(path).stem)
+    return int(m.group(1)) if m else default
+
+
 def load_state_dict(path: str | Path) -> dict:
     """Nested dict of numpy arrays stored in a flax msgpack checkpoint."""
     with open(path, "rb") as f:
@@ -64,6 +80,42 @@ def save_checkpoint(ckpt_dir: str | Path, state: dict, step: int,
         f.write(msgpack_serialize(state))
     os.replace(tmp, path)
     return path
+
+
+_SAVE_LOCK = threading.Lock()
+_SAVE_POOL: concurrent.futures.ThreadPoolExecutor | None = None  # one worker: saves stay ordered
+_PENDING: list[concurrent.futures.Future] = []
+
+
+def save_checkpoint_async(ckpt_dir: str | Path, state: dict, step: int,
+                          name: str | None = None) -> concurrent.futures.Future:
+    """:func:`save_checkpoint` on a background worker. ``state`` must be
+    host memory that training will not change (numpy copies). Returns a
+    future of the written path; call :func:`wait_pending_saves` before the
+    process exits."""
+    global _SAVE_POOL
+    with _SAVE_LOCK:
+        if _SAVE_POOL is None:
+            _SAVE_POOL = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ckpt-save")
+        fut = _SAVE_POOL.submit(save_checkpoint, ckpt_dir, state, step, name)
+        _PENDING.append(fut)
+    return fut
+
+
+def wait_pending_saves() -> None:
+    """Wait for every queued save and raise the first failure: a run whose
+    periodic checkpoints failed must not end as if they had been written."""
+    global _SAVE_POOL
+    with _SAVE_LOCK:
+        pool, _SAVE_POOL = _SAVE_POOL, None
+        pending, _PENDING[:] = list(_PENDING), []
+    if pool is not None:
+        pool.shutdown(wait=True)
+    for fut in pending:
+        exc = fut.exception()
+        if exc is not None:
+            raise exc
 
 
 # ---------------------------------------------------------------------------

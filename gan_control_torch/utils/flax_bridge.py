@@ -12,6 +12,12 @@ reads them) maps to a ``state_dict`` by:
 
 Every other leaf (biases, ``input/const`` kept NHWC, ``noise/weight``)
 carries over unchanged. :func:`state_dict_to_flax` is the inverse.
+
+The whole phase-1 train state travels as the JAX package's
+``GANTrainState`` (:func:`gan_state_to_flax`, :func:`load_gan_state`):
+exactly its fields, which ``flax.serialization`` restores strictly; each
+Adam's moments and step count in optax's ``adam`` layout; ``ada_p`` 0 (ADA
+is not ported); ``rng`` a key derived from the seed and the step.
 """
 
 from __future__ import annotations
@@ -59,7 +65,9 @@ def flax_to_state_dict(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             arr = np.asarray(val)
             if key == "kernel":
                 key, arr = "weight", _to_torch_layout(arr)
-            out[".".join(path + [key])] = torch.from_numpy(np.array(arr, copy=True))
+            # a C-order copy: a transposed view's strides would follow the
+            # tensor into optimizer state and off torch's foreach fast path
+            out[".".join(path + [key])] = torch.from_numpy(np.array(arr, copy=True, order="C"))
 
     walk(tree, [])
     return out
@@ -80,7 +88,9 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, Any]
                 path.append(parts[i])
                 i += 1
         leaf = parts[-1]
-        arr = tensor.detach().to("cpu", torch.float32).numpy()
+        # a copy: the caller may hand the tree to a writer while training
+        # changes the tensors in place
+        arr = tensor.detach().to("cpu", torch.float32, copy=True).numpy()
         if leaf == "weight" and arr.ndim in (2, 4):
             leaf, arr = "kernel", _to_flax_layout(arr)
         node = params
@@ -115,3 +125,101 @@ def save_flax_checkpoint(ckpt_dir: str | Path, entry: str, module: nn.Module,
     return ckpt_lib.save_checkpoint(
         ckpt_dir, {entry: state_dict_to_flax(module.state_dict())}, step
     )
+
+
+# the fields of the JAX package's GANTrainState, in its order
+GAN_STATE_FIELDS = ("step", "g_params", "d_params", "g_ema", "g_opt_state", "d_opt_state",
+                    "mean_path_length", "ada_p", "rng")
+
+
+def rng_key(seed: int, step: int) -> np.ndarray:
+    """The checkpoint's ``rng``: uint32 ``[seed, step]`` (each mod 2**32)."""
+    return np.array([seed % 2**32, step % 2**32], dtype=np.uint32)
+
+
+def generator_seed(key: np.ndarray) -> int:
+    """The ``torch.Generator`` seed of a checkpoint's ``rng`` key:
+    ``key[0] * 2**32 + key[1]``."""
+    key = np.asarray(key, dtype=np.uint32).reshape(-1)
+    return (int(key[0]) << 32) | int(key[1])
+
+
+def adam_to_optax(opt: torch.optim.Optimizer, module: nn.Module) -> dict[str, Any]:
+    """A ``torch.optim.Adam`` over ``module``'s parameters as the state
+    dict of optax's ``adam`` (``scale_by_adam`` then the learning-rate
+    scale): ``{"0": {"count", "mu", "nu"}, "1": {}}``, the moments in the
+    parameters' flax tree. Before the first step the moments are zeros."""
+    mu, nu, counts = {}, {}, set()
+    for name, p in module.named_parameters():
+        st = opt.state.get(p)
+        if st:
+            mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+            counts.add(int(st["step"]))
+        else:
+            mu[name] = nu[name] = torch.zeros_like(p)
+            counts.add(0)
+    if len(counts) != 1:
+        raise ValueError(f"Adam step counts differ between parameters: {sorted(counts)}")
+    return {"0": {"count": np.asarray(counts.pop(), np.int32), "mu": state_dict_to_flax(mu),
+                  "nu": state_dict_to_flax(nu)}, "1": {}}
+
+
+def load_adam_from_optax(opt: torch.optim.Optimizer, module: nn.Module,
+                         tree: Mapping[str, Any]) -> None:
+    """The inverse of :func:`adam_to_optax`: every parameter's moments and
+    the one step count (a count of 0 leaves the optimizer fresh)."""
+    inner = tree["0"]
+    count = int(np.asarray(inner["count"]))
+    mu, nu = flax_to_state_dict(inner["mu"]), flax_to_state_dict(inner["nu"])
+    names = {n for n, _ in module.named_parameters()}
+    if set(mu) != names or set(nu) != names:
+        raise ValueError(f"optimizer moments do not match the module: missing "
+                         f"{sorted(names - set(mu))[:5]}, extra {sorted(set(mu) - names)[:5]}")
+    for name, p in module.named_parameters():
+        if count == 0:
+            opt.state.pop(p, None)
+            continue
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name].to(device=p.device, dtype=p.dtype),
+            "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype),
+        }
+
+
+def gan_state_to_flax(state, seed: int) -> dict[str, Any]:
+    """The port's ``GANTrainState`` as the JAX ``GANTrainState``'s state
+    dict (host numpy copies)."""
+    return {
+        "step": np.asarray(state.step, np.int32),
+        "g_params": state_dict_to_flax(state.generator.state_dict()),
+        "d_params": state_dict_to_flax(state.discriminator.state_dict()),
+        "g_ema": state_dict_to_flax(state.g_ema.state_dict()),
+        "g_opt_state": adam_to_optax(state.g_opt, state.generator),
+        "d_opt_state": adam_to_optax(state.d_opt, state.discriminator),
+        "mean_path_length": np.asarray(float(state.mean_path_length), np.float32),
+        "ada_p": np.asarray(0.0, np.float32),
+        "rng": rng_key(seed, int(state.step)),
+    }
+
+
+def load_gan_state(state, tree: Mapping[str, Any]) -> None:
+    """Load a whole-state checkpoint (written by either package) into the
+    port's ``GANTrainState`` in place: parameters, EMA, both Adams, the
+    step, the path-length mean, and the ``torch.Generator`` reseeded from
+    ``rng``. Strict, as ``flax.serialization``: a missing or an extra field
+    raises."""
+    if set(tree) != set(GAN_STATE_FIELDS):
+        raise ValueError(f"not a whole train state: missing {sorted(set(GAN_STATE_FIELDS) - set(tree))}, "
+                         f"extra {sorted(set(tree) - set(GAN_STATE_FIELDS))}")
+    if float(np.asarray(tree["ada_p"])) != 0.0:
+        raise NotImplementedError("the checkpoint carries an ADA probability; ADA is not ported")
+    load_flax_params(state.generator, tree["g_params"])
+    load_flax_params(state.discriminator, tree["d_params"])
+    load_flax_params(state.g_ema, tree["g_ema"])
+    load_adam_from_optax(state.g_opt, state.generator, tree["g_opt_state"])
+    load_adam_from_optax(state.d_opt, state.discriminator, tree["d_opt_state"])
+    state.step = int(np.asarray(tree["step"]))
+    state.mean_path_length = torch.tensor(float(np.asarray(tree["mean_path_length"])),
+                                          dtype=torch.float32,
+                                          device=state.mean_path_length.device)
+    state.rng.manual_seed(generator_seed(tree["rng"]))

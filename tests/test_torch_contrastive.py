@@ -268,6 +268,53 @@ def test_predictor_precision_ctx_sets_tf32_and_restores(monkeypatch):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+class _RecordTF32(torch.autograd.Function):
+    """Identity that records the TF32 flags its backward runs under."""
+
+    seen: list = []
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _RecordTF32.seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return grad
+
+
+@pytest.mark.parametrize("config_value,inside", [("highest", False), ("default", True)])
+def test_predictor_precision_covers_the_backward(monkeypatch, config_value, inside):
+    """``with_predictor_precision``: the predictor's backward runs under the
+    resolved setting, for every output, and the caller's setting is back
+    once the backward has left the predictor; the values and the gradient
+    are the function's own."""
+    monkeypatch.delenv(precision.ENV_VAR, raising=False)
+    flags = lambda: (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)  # noqa: E731
+    saved = flags()
+    caller = (not inside, not inside)
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = caller[0]
+
+        def net(module, images):
+            h = _RecordTF32.apply(images * 2.0)
+            return [h, (h ** 2).sum(dim=1)]
+
+        fn = precision.with_predictor_precision(net, config_value, fallback="highest")
+        x = torch.arange(6.0).reshape(2, 3).requires_grad_(True)
+        _RecordTF32.seen = []
+        out = fn(None, x)
+        assert flags() == caller
+        assert torch.equal(out[0], x * 2.0) and torch.equal(out[1], ((2 * x) ** 2).sum(1))
+        _RecordTF32.seen = []
+        (out[0].sum() + out[1].sum()).backward()
+        assert _RecordTF32.seen == [(inside, inside)]
+        assert flags() == caller
+        torch.testing.assert_close(x.grad, 2.0 + 8.0 * x.detach(), rtol=0, atol=0)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def test_battery_dtype():
     assert precision.battery_dtype("float32") is torch.float32
     assert precision.battery_dtype("bfloat16") is torch.bfloat16

@@ -285,7 +285,10 @@ battery = {f"gan_control_torch.losses.{m}" for m in (
     "predictors.hopenet", "predictors.dex_age", "predictors.esr9", "predictors.hair_pspnet",
     "predictors.face3dmm")} | {"gan_control_torch.utils.weights", "gan_control_torch.utils.precision"}
 assert battery <= set(mods), sorted(battery - set(mods))
-assert len(mods) >= 29, mods
+real_data = {"gan_control_torch.data.native_loader", "gan_control_torch.data.prefetch",
+             "gan_control_torch.train_generator", "gan_control_torch.evaluation.generation"}
+assert real_data <= set(mods), sorted(real_data - set(mods))
+assert len(mods) >= 34, mods
 import torch
 from gan_control_torch.inference.inference import Inference
 if not torch.cuda.is_available():

@@ -435,3 +435,29 @@ def test_tiny_train_steps_card_match_cpu(cuda_device):
         for n in gc:
             scale = max(float(gc[n].abs().max()), 1e-8)
             assert float((gg[n] - gc[n]).abs().max()) <= 1e-3 * scale, (kind, n)
+
+
+@pytest.mark.gpu
+def test_device_feeder_pins_and_copies_in_order(cuda_device):
+    """The trainer's feeder on the card: batches arrive in the loader's
+    order and equal the host arrays, each copied from a pinned buffer that
+    is kept until its copy has completed, while the stream is busy with
+    other work."""
+    from gan_control_torch.data.prefetch import DeviceFeeder
+
+    batches = [_randn((4, 64, 64, 3), 200 + i) for i in range(12)]
+    feeder = DeviceFeeder(iter(batches), cuda_device, depth=2)
+    busy = torch.randn(2048, 2048, device=cuda_device)
+    try:
+        for want in batches:
+            for _ in range(4):
+                busy = torch.tanh(busy @ busy * 1e-3)
+            got = feeder.next()
+            assert got.device.type == "cuda" and got.dtype == torch.float32
+            assert all(p.is_pinned() for p, _ in feeder._in_flight)
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+        with pytest.raises(StopIteration):
+            feeder.next()
+    finally:
+        feeder.close()
+    assert not feeder._in_flight

@@ -69,3 +69,53 @@ def test_build_attr_losses_defaults_to_the_card(battery):
     specs, predictors = build_attr_losses({"expression_loss": FFHQ["training_config"]["expression_loss"]})
     assert [s.name for s in specs] == ["expression_loss"]
     assert all(p.is_cuda for p in predictors["expression_loss"].parameters())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", NETS)
+def test_f32_battery_backward_keeps_its_precision(battery, name):
+    """An f32 predictor at "highest", called as the registry calls it
+    (``with_predictor_precision``), in a process with TF32 on: its layers
+    and the image gradient of a seeded projection equal those of a process
+    with TF32 off everywhere, within this file's f32 bounds, and no farther
+    than a backward that ran under the caller's TF32; the caller's setting
+    is back after the backward."""
+    import copy
+
+    from gan_control_torch.utils.precision import predictor_precision_ctx, with_predictor_precision
+
+    nets, images = battery
+    module = copy.deepcopy(nets[name]).to("cuda")
+    x0 = images[:2].cuda()
+    guarded = with_predictor_precision(lambda m, x: m(x), "highest")
+
+    def forward_only(m, x):
+        with predictor_precision_ctx("highest"):
+            return m(x)
+
+    def run(fn, tf32):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        x = x0.clone().requires_grad_(True)
+        feats = fn(module, x)
+        feats = list(feats) if isinstance(feats, (list, tuple)) else [feats]
+        gen = torch.Generator().manual_seed(NETS.index(name))
+        projs = [torch.randn(f.shape, generator=gen).cuda() for f in feats]
+        (grad,) = torch.autograd.grad(sum((f.float() * p).sum() for f, p in zip(feats, projs)), x)
+        after = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        return [f.detach().float() for f in feats], grad.float(), after
+
+    try:
+        want_f, want_g, _ = run(guarded, False)
+        got_f, got_g, after = run(guarded, True)
+        _, unguarded_g, _ = run(forward_only, True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    assert after == (True, True)
+    for g, w in zip(got_f, want_f):
+        assert float((g - w).abs().max()) <= chip_smoke.PREDICTOR_RTOL * max(float(w.abs().max()), 1e-12)
+    rel = float((got_g - want_g).norm() / want_g.norm())
+    rel_unguarded = float((unguarded_g - want_g).norm() / want_g.norm())
+    print(f"{name}: image gradient relative L2 to TF32 off: {rel:.3e} guarded, "
+          f"{rel_unguarded:.3e} with the backward under the caller's TF32")
+    assert rel <= chip_smoke.PREDICTOR_GRAD_REL_L2
+    assert rel <= rel_unguarded

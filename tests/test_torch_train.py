@@ -414,8 +414,11 @@ def test_trainer_dry_run_train_and_checkpoint(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """ADA raises; without an injected loader the data come from
+    ``data_config``, and its missing path raises rather than falling back
+    to synthetic data."""
     config = _tiny_config()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="data_config.path"):
         GeneratorTrainer(config=config, init_dirs=False, device="cpu")
     config["training_config"]["augment"]["enabled"] = True
     with pytest.raises(NotImplementedError):
