@@ -78,8 +78,38 @@ seconds:
     gradients, and ``g_step`` with the battery. The hair mask may differ only
     at pixels whose logit lies at the threshold; both sides then use the
     CPU's mask;
-10. one JSON line of per-kernel numbers over ``train(5)``, then the card's
-    line and the result line.
+10. phase-2a sweep: an FFHQ-512 phase-1 directory at random init (phase
+    3's writer), then ``python -m gan_control_torch.make_attributes_df
+    --batch_size 40 --number_of_samples 1280`` into
+    ``build/gan_control_torch/attributes.npz`` (the config's six predictors
+    at random init, f32); the table's columns and shapes are the JAX
+    sweep's, every value finite, ``latents_w`` the port's mapping of
+    ``latents``; its rows per second; one batch in-process: launches
+    against the counts derived from the modules, and its time split
+    between the synthesis and each predictor (CUDA events);
+11. phase-2b ``latent_rec``: configs/controller_configs/ffhq/age_controller.json
+    with its paths under build/ and evaluations and saves every 100
+    iterations, through ``python -m gan_control_torch.train_controller
+    --iters 200``: finite metrics, checkpoints, dual grids, the median
+    iteration and the config's 800 000 iterations at that rate; launches and
+    ms per step in-process;
+12. ``attribute_rec``: the same config in-process with losses
+    ``latent_rec`` and ``attribute_rec`` (weight 0.01), batch 128, DEX at
+    random init, the G rematerialised: five steps and one evaluation with
+    launches against counts derived from the modules (the recompute
+    included), ms and peak memory; the head's gradients with and without
+    rematerialisation on the same noise at batch 16 (G in f32);
+13. the trained age head and phase 3's orientation head in one controller
+    directory through ``Controller``: each head's output is its group's
+    slice of w;
+14. one size-32 controller step, card against CPU (f32, TF32 off, explicit
+    noise), with ``latent_rec`` and with ``attribute_rec``; then every
+    (kernel, shape, dtype) that phases 10-12 launched in-process, at its
+    path dtype, forward and backward against the plain version, with its
+    times and bound;
+15. one JSON line of per-kernel numbers over ``train(5)`` and the phase-2
+    launches of phases 10-12 (launches, times and bounds summed over both),
+    then the card's line and the result line.
 
 Times, per launch at each shape and summed over a path's launches:
 "host-rate" is the mean over back-to-back eager calls between two CUDA
@@ -100,6 +130,7 @@ import copy
 import json
 import math
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -544,6 +575,22 @@ def inference_phases(build_root: Path) -> tuple[dict, dict]:
 # training (this slice)
 # ---------------------------------------------------------------------------
 
+def g_counts(g) -> tuple[int, int, int]:
+    """(mapping layers that run fused_bias_act, StyledConvs, ToRGB skips
+    that run blur2x_up) of a generator."""
+    from gan_control_torch.models.blocks import EqualLinear, StyledConv
+
+    n_map = sum(isinstance(m, EqualLinear) and m.activation == "fused_lrelu" for m in g.style.modules())
+    n_conv = sum(isinstance(m, StyledConv) for m in g.modules())
+    return n_map, n_conv, len(g.to_rgbs)
+
+
+def row(fba: int, grad: int, up: int, down: int, sep: int = 0) -> dict:
+    """Launches of each kernel."""
+    return {"fused_bias_act": fba, "fused_bias_act_grad": grad, "blur2x_up": up,
+            "blur2x_down": down, "blur_sep": sep}
+
+
 def expected_step_counts(g, d, n_groups: int) -> dict:
     """Kernel launches per step kind, and per ``save_images`` (the EMA
     generator's forward on the sample grid and on one matrix per each of
@@ -564,11 +611,9 @@ def expected_step_counts(g, d, n_groups: int) -> dict:
     back by blur2x_down, which no parameter touches, so the double backward
     launches no blur kernel in G.
     """
-    from gan_control_torch.models.blocks import ConvLayer, EqualLinear, StyledConv
+    from gan_control_torch.models.blocks import ConvLayer, EqualLinear
 
-    n_map = sum(isinstance(m, EqualLinear) and m.activation == "fused_lrelu" for m in g.style.modules())
-    n_conv = sum(isinstance(m, StyledConv) for m in g.modules())
-    n_up = len(g.to_rgbs)
+    n_map, n_conv, n_up = g_counts(g)
     heads = [m for name, m in d.named_children() if name.endswith("_head")]
     in_heads = {id(x) for h in heads for x in h.modules()}
     fba = [m for m in d.modules() if (isinstance(m, ConvLayer) and m.activate)
@@ -577,11 +622,6 @@ def expected_step_counts(g, d, n_groups: int) -> dict:
     d_low = sum(id(m) not in in_heads for m in fba)
     d_sep = sum(isinstance(m, ConvLayer) and m.downsample for m in d.modules())
     g_fba = n_map + n_conv
-
-    def row(fba_, grad, up, down, sep):
-        return {"fused_bias_act": fba_, "fused_bias_act_grad": grad, "blur2x_up": up,
-                "blur2x_down": down, "blur_sep": sep}
-
     return {
         "d_step": row(g_fba + 2 * d_fba, 2 * d_fba, n_up, 0, 4 * d_sep),
         "d_reg_step": row(d_fba, 2 * d_fba + d_low, 0, 0, 4 * d_sep),
@@ -1174,11 +1214,12 @@ def grads_of(fn, ins, gen, order2: bool):
     return res
 
 
-def train_kernel_phase(seen: Counter) -> dict:
+def train_kernel_phase(seen: Counter, label: str = f"train({TRAIN_ITERS})", both_dtypes: bool = True) -> dict:
     """Phase 8: per recorded (kernel, shape, dtype, args), forward and
     backward (and, once per kernel pair, the second order) against the
-    plain version in f32 and bf16; times at the path's dtype. Returns
-    per-kernel totals over the launches of ``train(5)``."""
+    plain version in f32 and bf16 (with ``both_dtypes``, else at the path's
+    dtype alone); times at the path's dtype. Returns per-kernel totals over
+    the recorded launches (``label`` names them)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     totals = new_totals(KERNELS)
@@ -1186,7 +1227,7 @@ def train_kernel_phase(seen: Counter) -> dict:
     second_done = set()
     for case, ((name, shape, path_dtype, args), count) in enumerate(
             sorted(seen.items(), key=lambda kv: str(kv[0]))):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in ((torch.float32, torch.bfloat16) if both_dtypes else (path_dtype,)):
             seed = 1000 * case + (dtype == torch.bfloat16)
             ins, fn, plain, launch, library = kernel_case(name, shape, dtype, args,
                                                           torch.Generator(device="cuda").manual_seed(seed))
@@ -1205,8 +1246,8 @@ def train_kernel_phase(seen: Counter) -> dict:
                 errs.append(err)
             if order2:
                 second_done.add(pair)
-            line = (f"kernel {name} {list(shape)} {str(dtype)[6:]} {args} (x{count} in train("
-                    f"{TRAIN_ITERS}) in {str(path_dtype)[6:]}): errors fwd {errs[0]:.3g} bwd "
+            line = (f"kernel {name} {list(shape)} {str(dtype)[6:]} {args} (x{count} in {label} in "
+                    f"{str(path_dtype)[6:]}): errors fwd {errs[0]:.3g} bwd "
                     f"{max(errs[1:len(ins) + 1]):.3g}" + (f" 2nd {errs[-1]:.3g}" if order2 else ""))
             if dtype == path_dtype:
                 with torch.no_grad():
@@ -1222,7 +1263,7 @@ def train_kernel_phase(seen: Counter) -> dict:
             log(line)
             del ins, got, want
     missing = sorted({"fused_bias_act", "fused_bias_act_grad", "blur_sep", "blur2x"} - second_done)
-    if missing:
+    if missing and both_dtypes:
         fail(f"no second-order check ran for {missing}")
     for (s, c), lv in sorted(levels.items(), reverse=True):
         log(f"blur_sep level {s} px C {c}: {lv['shapes']} shapes, x{lv['count']} in train("
@@ -1474,6 +1515,447 @@ def train_card_vs_cpu() -> None:
             fail(f"{kind}: card and CPU disagree")
 
 
+# ---------------------------------------------------------------------------
+# phase 2: the attribute sweep and controller training (this slice)
+# ---------------------------------------------------------------------------
+
+SWEEP_BATCH = 40
+SWEEP_ROWS = 1280
+CTRL_ITERS = 200
+CTRL_CHECK_INTERVAL = 100  # min_evaluate_interval and save_nets_interval of phase 11
+ATTR_STEPS = 5
+REMAT_CHECK_BATCH = 16
+PARITY_CTRL_BATCH = 8
+# the JAX sweep's columns (latents, latents_w, the five one-net columns,
+# the R-Net's three) and each row's shape
+SWEEP_COLUMNS = {"latents": (512,), "latents_w": (512,), "orientation": (3,), "age": (),
+                 "expression_q": (), "hair": (3,), "arcface_emb": (512,), "gamma3d": (27,),
+                 "expression3d": (64,), "orientation3d": (3,)}
+# the sweep's latents_w against the port's mapping of its latents: the same
+# f32 mapping in another process, relative to max|w| (the synthesis that
+# follows it is bf16; the mapping is not)
+LATENT_RTOL = 1e-3
+# the head's gradients with and without rematerialisation: the same f32
+# operations recomputed (TF32 off); only the order of the float atomics in
+# the predictor's resize backward differs between two runs
+REMAT_RTOL = 1e-5
+
+
+def run_cli(module: str, args: list[str], log_path: Path, timeout: float) -> list[str]:
+    """``python -m module args`` with its output in ``log_path``; its last
+    lines printed and the script failed when it does not exit 0. Returns its
+    lines."""
+    with open(log_path, "w") as f:
+        try:
+            proc = subprocess.run([sys.executable, "-m", module, *args], stdout=f,
+                                  stderr=subprocess.STDOUT, cwd=REPO, timeout=timeout)
+        except subprocess.TimeoutExpired:
+            fail(f"{module} did not exit within {timeout} s")
+    lines = log_path.read_text().splitlines()
+    if proc.returncode != 0:
+        fail(f"{module} exited {proc.returncode}; last lines:\n" + "\n".join(lines[-30:]))
+    return lines
+
+
+def launches_of(fn, seen: Counter) -> dict:
+    """Kernel launches of one call of ``fn`` (counters set to 0 just before,
+    read just after), its launches recorded by shape in ``seen``."""
+    from gan_control_torch.ops import kernels
+
+    remove = install_launch_recorder(seen)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return kernels.launch_counts()
+    finally:
+        remove()
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for n, c in counts.items():
+        total[n] += c
+
+
+def synced_ms(fn, reps: int) -> list[float]:
+    """Host ms of each of ``reps`` calls of ``fn``, each from a synced device
+    to a synced device."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def sweep_phase(root: Path, seen: Counter, counts: dict) -> Path:
+    """Phase 10: the phase-2a sweep through its command line on an FFHQ-512
+    phase-1 directory at random init; the table against the JAX columns and
+    the port's mapping; one batch in-process: launches, and the split of
+    its time between synthesis and the six predictors. Returns the table."""
+    from gan_control_torch.data.dataframe import read_table
+    from gan_control_torch.inference.extract_controls import ControlExtractor
+    from gan_control_torch.inference.inference import Inference
+
+    with Phase("sweep write"):
+        write_controller_dir(root / "controller")  # phase 3's writer: G and two heads
+    model_dir = root / "controller" / "generator"
+    table_path = root.parent / "attributes.npz"
+    with Phase("sweep command line"):
+        t0 = time.perf_counter()
+        lines = run_cli("gan_control_torch.make_attributes_df",
+                        ["--model_dir", str(model_dir), "--batch_size", str(SWEEP_BATCH),
+                         "--number_of_samples", str(SWEEP_ROWS), "--save_path", str(table_path)],
+                        root.parent / "make_attributes_df.log", 900)
+        wall = time.perf_counter() - t0
+        m = re.search(r"swept (\d+) rows in ([\d.]+) s \(([\d.]+) rows/s", "\n".join(lines))
+        if not m:
+            fail("make_attributes_df logged no sweep line")
+        rate = float(m[3])
+        log(f"sweep: make_attributes_df --batch_size {SWEEP_BATCH} --number_of_samples {SWEEP_ROWS}: "
+            f"{m[1]} rows in {m[2]} s = {rate:.2f} rows/s (its loop, writes included; the command "
+            f"{wall:.1f} s with start-up); 100000 rows at that rate {100000 / rate / 60:.1f} min")
+
+    with Phase("sweep table"):
+        table = read_table(table_path)
+        if list(table) != list(SWEEP_COLUMNS):
+            fail(f"sweep columns {list(table)}, expected {list(SWEEP_COLUMNS)}")
+        for name, shape in SWEEP_COLUMNS.items():
+            col = table[name]
+            if col.shape != (SWEEP_ROWS, *shape) or not np.isfinite(col).all():
+                fail(f"sweep column {name}: shape {col.shape} (expected {(SWEEP_ROWS, *shape)}) or not finite")
+        q = table["expression_q"]
+        if not (np.all(q == np.round(q)) and q.min() >= 0 and q.max() < 8):
+            fail("expression_q is not a class index")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        inf = Inference(model_dir, device="cuda")
+        with torch.no_grad():
+            w = inf.model.map_latent(torch.from_numpy(table["latents"]).cuda()).cpu().numpy()
+        err = float(np.abs(w - table["latents_w"]).max())
+        tol = LATENT_RTOL * max(1.0, float(np.abs(w).max()))
+        log(f"sweep table: {SWEEP_ROWS} rows, columns {list(table)}, every value finite; latents_w against "
+            f"the port's mapping of latents max_abs_err {err:.3g} (tol {tol:.3g}); "
+            + ", ".join(f"{k} mean {table[k].mean():.4g} std {table[k].std():.4g}"
+                        for k in ("age", "expression_q", "orientation", "hair")))
+        if err > tol:
+            fail("latents_w is not the mapping of latents")
+
+    with Phase("sweep batch"):
+        extractor = ControlExtractor(inf.config["training_config"], device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def batch():
+            z = torch.randn((SWEEP_BATCH, 512), generator=gen, device="cuda")
+            img, _, _ = inf.gen_batch(batch_size=SWEEP_BATCH, normalize=False, latent=z, generator=gen)
+            return extractor.extract_tensors(img)
+
+        batch()
+        got = launches_of(batch, seen)
+        n_map, n_conv, n_up = g_counts(inf.model)
+        want = row(n_map + n_conv, 0, n_up, 0)
+        log(f"sweep batch: launches {got}, expected {want} (mapping {n_map}, StyledConvs {n_conv}, "
+            f"ToRGB skips {n_up}; the predictors launch none of the port's kernels); the command line "
+            f"ran {SWEEP_ROWS // SWEEP_BATCH} such batches")
+        if got != want:
+            fail("sweep batch launches differ from the derived counts")
+        add_counts(counts, got)
+
+        def split():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 + len(extractor._fns))]
+            ev[0].record()
+            z = torch.randn((SWEEP_BATCH, 512), generator=gen, device="cuda")
+            img, _, _ = inf.gen_batch(batch_size=SWEEP_BATCH, normalize=False, latent=z, generator=gen)
+            ev[1].record()
+            with torch.no_grad():
+                for i, fn in enumerate(extractor._fns.values()):
+                    fn(img)
+                    ev[2 + i].record()
+            return ev
+
+        spans = event_ms(split)
+        med = statistics.median(synced_ms(batch, BATTERY_REPS))
+        log(f"sweep batch {SWEEP_BATCH} (CUDA events, median of {BATTERY_REPS}): synthesis (z, mapping, bf16 "
+            f"512 px) {spans[0]:.2f} ms; predictors (f32) "
+            + ", ".join(f"{k} {t:.2f} ms" for k, t in zip(extractor._fns, spans[1:]))
+            + f"; predictors together {sum(spans[1:]):.2f} ms = {100 * sum(spans[1:]) / sum(spans):.1f}%; "
+            f"host clock per synced batch median {med:.2f} ms = {SWEEP_BATCH / med * 1e3:.2f} rows/s")
+    del extractor, inf
+    torch.cuda.empty_cache()
+    return table_path
+
+
+def controller_config(model_dir: Path, table_path: Path, results_dir: Path) -> dict:
+    """configs/controller_configs/ffhq/age_controller.json with its paths
+    under build/ and evaluations and saves every CTRL_CHECK_INTERVAL."""
+    cfg = json.loads((CONFIGS / "controller_configs" / "ffhq" / "age_controller.json").read_text())
+    cfg["results_dir"] = str(results_dir)
+    cfg["training_config"].update(generator_dir=str(model_dir), sampled_df_path=str(table_path),
+                                  min_evaluate_interval=CTRL_CHECK_INTERVAL,
+                                  save_nets_interval=CTRL_CHECK_INTERVAL)
+    return cfg
+
+
+def latent_rec_phase(root: Path, table_path: Path, seen: Counter, counts: dict) -> Path:
+    """Phase 11: the age head trained by ``python -m
+    gan_control_torch.train_controller --iters 200`` on the sweep's table
+    (latent_rec); finite metrics, checkpoints and dual grids; launches per
+    step in-process against the derived count and the step's time. Returns
+    the head's directory."""
+    from gan_control_torch.trainers.controller_trainer import ControllerTrainer
+
+    cfg = controller_config(root / "controller" / "generator", table_path, root / "controllers")
+    cfg_path = root / "age_controller.json"
+    cfg_path.write_text(json.dumps(cfg, indent=2))
+    with Phase("controller command line"):
+        lines = run_cli("gan_control_torch.train_controller",
+                        ["--config_path", str(cfg_path), "--iters", str(CTRL_ITERS)],
+                        root.parent / "train_controller.log", 900)
+        heads = sorted((root / "controllers").glob("age_*"))
+        if len(heads) != 1:
+            fail(f"expected one age head directory, found {heads}")
+        head = heads[0]
+        history = []
+        for ln in lines:
+            m = re.search(r"controller iter (\d+): (\{.*\})", ln)
+            if m:
+                vals = {k: float(v) for k, v in re.findall(r"'(\w+)': ([-\w.+]+)", m[2])}
+                if not all(math.isfinite(v) for v in vals.values()):
+                    fail(f"controller metrics not finite: {m[2]}")
+                history.append(vals)
+        want_ckpts = [f"{i:06d}.ckpt" for i in range(CTRL_CHECK_INTERVAL, CTRL_ITERS + 1, CTRL_CHECK_INTERVAL)]
+        ckpts = sorted(p.name for p in (head / "checkpoint").glob("*.ckpt"))
+        grids = sorted(p.name for p in (head / "images" / "sample").glob("*.png"))
+        want_grids = [f"{i:06d}.png" for i in range(0, CTRL_ITERS, CTRL_CHECK_INTERVAL)]
+        if [int(h["iter"]) for h in history] != list(range(0, CTRL_ITERS, CTRL_CHECK_INTERVAL)) \
+                or ckpts != want_ckpts or grids != want_grids \
+                or not (head / "generator" / "args.json").exists():
+            fail(f"controller run: metrics at {[h.get('iter') for h in history]}, checkpoints {ckpts}, "
+                 f"grids {grids}")
+        med = float(re.search(r"median ([\d.]+) ms per iteration", "\n".join(lines))[1])
+        log(f"controller command line: {head.name}, latent_rec, batch {cfg['training_config']['batch']}; "
+            f"metrics {history}; checkpoints {ckpts}; dual grids {grids}; median {med:.4f} ms per "
+            f"iteration (host clock, no sync); the config's {cfg['training_config']['iter']} iterations at "
+            f"that rate {cfg['training_config']['iter'] * med / 3.6e6:.2f} h")
+
+    with Phase("controller latent_rec steps"):
+        tr = ControllerTrainer(config=cfg, init_dirs=False, device="cuda")
+        n_head = tr.controller.n_mlp
+        want = row(n_head, n_head, 0, 0)
+        tr.train_step(*next(tr.loader))
+        for _ in range(3):
+            got = launches_of(lambda: tr.train_step(*next(tr.loader)), seen)
+            if got != want:
+                fail(f"latent_rec step launches {got}, expected {want}")
+            add_counts(counts, got)
+        times = synced_ms(lambda: tr.train_step(*next(tr.loader)), 20)
+        log(f"controller latent_rec step: launches {want} per step (the head's {n_head} layers forward and "
+            f"backward); median {statistics.median(times):.3f} ms between syncs, the loader's batch included "
+            f"({[round(t, 3) for t in times]})")
+    return head
+
+
+def attribute_rec_phase(root: Path, table_path: Path, seen: Counter, counts: dict) -> None:
+    """Phase 12: latent_rec + attribute_rec (weight 0.01) at batch 128
+    through the rematerialised bf16 G and DEX (f32, random init): five
+    steps and one evaluation with launches against the derived counts, ms,
+    peak memory; then, at a batch that fits without rematerialisation, the
+    head's gradients with and without it on the same noise (G in f32,
+    TF32 off)."""
+    from gan_control_torch.trainers.controller_trainer import ControllerTrainer
+
+    cfg = controller_config(root / "controller" / "generator", table_path, root / "controllers")
+    cfg["training_config"].update(losses=["latent_rec", "attribute_rec"], attribute_rec_w=0.01)
+    torch.backends.cudnn.allow_tf32 = True  # the defaults: the synthesis is bf16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with Phase("controller attribute_rec steps"):
+        tr = ControllerTrainer(config=cfg, init_dirs=False, device="cuda")
+        g = tr.generator
+        n_map, n_conv, n_up = g_counts(g)
+        n_head, n_remat = tr.controller.n_mlp, len(g.convs)
+        # the head forward and backward; each StyledConv forward, again in
+        # the backward for the rematerialised ones (every conv after conv1),
+        # and its gradient; each ToRGB skip up, and down in the backward
+        want = row(n_head + n_conv + n_remat, n_head + n_conv, n_up, n_up)
+        log(f"controller attribute_rec: G synthesis {g.dtype}, remat {g.remat}, predictor "
+            f"{type(tr.predictor).__name__} {next(tr.predictor.parameters()).dtype}, batch "
+            f"{cfg['training_config']['batch']}; expected launches per step {want}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, history = [], []
+        for _ in range(ATTR_STEPS):
+            batch = next(tr.loader)
+            t0 = time.perf_counter()
+            got = launches_of(lambda: history.append(tr.train_step(*batch)), seen)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if got != want:
+                fail(f"attribute_rec step launches {got}, expected {want}")
+            add_counts(counts, got)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        metrics = [{k: float(v) for k, v in h.items()} for h in history]
+        if not all(math.isfinite(v) for h in metrics for v in h.values()):
+            fail(f"attribute_rec metrics not finite: {metrics}")
+        log(f"controller attribute_rec step: median {statistics.median(times[1:]):.2f} ms between syncs "
+            f"over steps 2-{ATTR_STEPS} ({[round(t, 2) for t in times]}); peak memory {peak:.2f} GiB; "
+            f"launches as derived; metrics {metrics}")
+        n_eval = 5 if cfg["training_config"].get("debug") else 25
+        result = {}
+        t0 = time.perf_counter()
+        got = launches_of(lambda: result.update(tr.evaluate()), seen)
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        want_eval = row(n_eval * (n_head + n_conv), 0, n_eval * n_up, 0)
+        log(f"controller evaluation: {result}, {n_eval} batches of {min(50, len(tr.eval_dataset))} "
+            f"in {eval_ms:.1f} ms; launches {got}, expected {want_eval}")
+        if got != want_eval or not all(math.isfinite(v) for v in result.values()):
+            fail("the evaluation's launches or metrics are wrong")
+        add_counts(counts, got)
+
+    with Phase("controller remat against plain"):
+        torch.backends.cudnn.allow_tf32 = False
+        g.dtype = torch.float32
+        controls, w = (a[:REMAT_CHECK_BATCH] for a in next(tr.loader))
+        noise = g.draw_noise(len(controls), torch.Generator(device="cuda").manual_seed(5), "cuda")
+        start = copy.deepcopy(tr.controller.state_dict())
+        grads, peaks = {}, {}
+        for remat in (True, False):
+            tr.controller.load_state_dict(start)
+            g.remat = remat
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tr.train_step(controls, w, noise=noise)
+            torch.cuda.synchronize()
+            peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+            grads[remat] = {n: p.grad.detach().clone() for n, p in tr.controller.named_parameters()}
+        worst = max(float((grads[True][n] - grads[False][n]).abs().max())
+                    / max(float(grads[False][n].abs().max()), 1e-30) for n in grads[False])
+        log(f"controller remat against plain: batch {len(controls)}, G f32, TF32 off, the same noise: "
+            f"head gradients worst rel err {worst:.3g} (tol {REMAT_RTOL}); peak memory {peaks[True]:.2f} "
+            f"GiB with remat, {peaks[False]:.2f} without")
+        if worst > REMAT_RTOL:
+            fail("the rematerialised G gives other gradients")
+    del tr, g
+    torch.cuda.empty_cache()
+
+
+def two_heads_phase(root: Path, age_head: Path) -> None:
+    """Phase 13: the trained age head and phase 3's orientation head in one
+    controller directory, through ``Controller``: each head's output lands
+    in its group's slice of w."""
+    import shutil
+
+    from gan_control_torch.inference.controller import Controller
+
+    with Phase("controller two heads"):
+        cdir = root / "two_heads"
+        shutil.copytree(root / "controller" / "generator", cdir / "generator")
+        (orientation,) = (root / "controller").glob("orientation_*")
+        shutil.copytree(orientation, cdir / orientation.name)
+        shutil.copytree(age_head, cdir / age_head.name, ignore=shutil.ignore_patterns("generator"))
+        ctrl = Controller(cdir, device="cuda")
+        if sorted(ctrl.fc_controls) != ["age", "orientation"]:
+            fail(f"heads {sorted(ctrl.fc_controls)}")
+        ctl = controls(BATCH, 6)
+        z = np.random.default_rng(7).standard_normal((BATCH, 512)).astype(np.float32)
+        img, _, latent_w = ctrl.gen_batch_by_controls(batch_size=BATCH, latent=z, **ctl)
+        torch.cuda.synchronize()
+        errs = {}
+        for group, value in ctl.items():
+            grp = ctrl.spec.group(group)
+            with torch.no_grad():
+                want = ctrl.generate_group_w_latent(group, value)
+            errs[group] = float((latent_w[:, grp.latent_start:grp.latent_end] - want).abs().max())
+        log(f"controller two heads: {sorted(ctrl.fc_controls)} from {sorted(p.name for p in cdir.iterdir())}; "
+            f"each head's output against its slice of w: max_abs_err {errs}; images {tuple(img.shape)}")
+        if any(e != 0.0 for e in errs.values()) or tuple(img.shape) != (BATCH, 512, 512, 3) \
+                or not bool(torch.isfinite(img).all()):
+            fail("a head's output is not its slice of w, or the images are wrong")
+        del ctrl, img
+
+
+def controller_card_vs_cpu(root: Path) -> None:
+    """Phase 14: one controller step of a size-32 model (max_channels 64,
+    f32, TF32 off, the predictor at "highest") on the card and on the CPU
+    from the same parameters, batch and noise: with latent_rec each head
+    gradient to TRAIN_PARITY_RTOL of its largest entry; with attribute_rec
+    (DEX at random init, f32) to BATTERY_PARITY_RTOL."""
+    from gan_control_torch.data.dataframe import write_table
+    from gan_control_torch.models.factory import build_generator, build_group_spec
+    from gan_control_torch.trainers.controller_trainer import ControllerTrainer
+    from gan_control_torch.utils.flax_bridge import save_flax_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = json.loads((CONFIGS / "ffhq.json").read_text())
+    config["model_config"].update(size=32, max_channels=64, mixed_precision=False)
+    config["training_config"]["predictor_precision"] = "highest"
+    gdir = root / "size32" / "generator"
+    gdir.mkdir(parents=True)
+    (gdir / "args.json").write_text(json.dumps(config))
+    gen = build_generator(config, build_group_spec(config), device="cpu", seed=0)
+    with torch.no_grad():
+        for m in gen.modules():  # non-zero noise weights, so the injection counts
+            if type(m).__name__ == "NoiseInjection":
+                m.weight.fill_(0.3)
+    save_flax_checkpoint(gdir / "checkpoint", "g_ema", gen)
+    rng = np.random.default_rng(8)
+    table = root / "size32" / "attributes.npz"
+    write_table(table, {"latents_w": rng.standard_normal((40, 512)).astype(np.float32),
+                        "age": rng.uniform(15, 75, 40)})
+    controls_, w = rng.uniform(15, 75, (PARITY_CTRL_BATCH, 1)).astype(np.float32), \
+        rng.standard_normal((PARITY_CTRL_BATCH, 512)).astype(np.float32)
+    noise = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for s in gen.noise_shapes(PARITY_CTRL_BATCH)]
+    for losses, tol in ((["latent_rec"], TRAIN_PARITY_RTOL), (["latent_rec", "attribute_rec"], BATTERY_PARITY_RTOL)):
+        cfg = controller_config(gdir, table, root / "size32" / "controllers")
+        cfg["training_config"].update(losses=losses, batch=PARITY_CTRL_BATCH)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            tr = ControllerTrainer(config=cfg, init_dirs=False, device=dev)
+            m = tr.train_step(controls_, w, noise=[n.to(dev) for n in noise])
+            out[dev] = ({k: float(v) for k, v in m.items()},
+                        {n: p.grad.detach().cpu() for n, p in tr.controller.named_parameters()})
+            del tr
+        (mc, gc), (mg, gg) = out["cpu"], out["cuda"]
+        loss_err = max(abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])) for k in mc)
+        worst, worst_name = 0.0, ""
+        for n in gc:
+            r = float((gg[n] - gc[n]).abs().max()) / max(float(gc[n].abs().max()), 1e-30)
+            if r > worst:
+                worst, worst_name = r, n
+        log(f"controller card vs cpu: {'+'.join(losses)} batch {PARITY_CTRL_BATCH} size 32 f32: losses {mc} "
+            f"(card {mg}), worst loss rel err {loss_err:.3g} (tol {TRAIN_PARITY_RTOL}); head gradients worst "
+            f"rel err {worst:.3g} ({worst_name}), tol {tol}")
+        if loss_err > TRAIN_PARITY_RTOL or worst > tol:
+            fail(f"controller step {losses}: card and CPU disagree")
+
+
+def phase2(build_root: Path) -> tuple[Counter, dict]:
+    """Phases 10-14. Returns the launches recorded on the phase-2 paths by
+    (kernel, shape, dtype, static args) and their counts: the sweep's (the
+    in-process batch's times the command line's batches), the latent_rec
+    and attribute_rec steps' and the evaluation's."""
+    import shutil
+
+    root = build_root / "phase2"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    seen: Counter = Counter()
+    counts: dict = {n: 0 for n in KERNELS}
+    table = sweep_phase(root, seen, counts)
+    head = latent_rec_phase(root, table, seen, counts)
+    attribute_rec_phase(root, table, seen, counts)
+    two_heads_phase(root, head)
+    with Phase("controller card vs cpu"):
+        controller_card_vs_cpu(root)
+    missing = [n for n in ("fused_bias_act", "fused_bias_act_grad", "blur2x_up", "blur2x_down") if not counts[n]]
+    if missing:
+        fail(f"phase 2 launched no {missing}")
+    return seen, counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU only")
@@ -1534,12 +2016,26 @@ def main() -> None:
     with Phase("train card vs cpu (with the predictors on their own)"):
         train_card_vs_cpu()
 
+    # 10-14. phase 2
+    seen2, counts2 = phase2(build_root)
+    with Phase("phase 2 kernels"):
+        totals2 = train_kernel_phase(seen2, "phase 2", both_dtypes=False)
+    for n in KERNELS:
+        log(f"phase 2 totals {n}: launches {counts2[n]} " + totals_text(totals2[n]))
+        tot = totals[n]
+        for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+            tot[key] += totals2[n][key]
+        for key in ("library_ms", "library_device_ms"):
+            if totals2[n][key] is not None:
+                tot[key] = (tot[key] or 0.0) + totals2[n][key]
+        tot["max_abs_err"] = max(tot["max_abs_err"], totals2[n]["max_abs_err"])
+
     entries = []
     for n, (route, src, replaces) in KERNELS.items():
         tot = totals[n]
         entries.append({
             "name": n, "route": route, "source": src, "replaces": replaces,
-            "launches": counts[n], "max_abs_err": tot["max_abs_err"],
+            "launches": counts[n] + counts2[n], "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",

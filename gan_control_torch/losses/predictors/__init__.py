@@ -8,7 +8,10 @@ images to its list of feature layers, the criterion's embedding last) and:
   - ``read_reference_state_dict(path)``: the reference checkpoint as a
     ``state_dict`` in the network's names;
   - ``state_dict_from_flax(tree)``: the JAX package's parameter tree as that
-    ``state_dict``.
+    ``state_dict``;
+  - ``predict(model, images)``: the attribute value the phase-2 sweep
+    writes and ``attribute_rec`` compares, and
+    ``controller_criterion(pred, target)``: that comparison.
 
 The six of the FFHQ configuration are ported; ``dogfacenet``, ``vgg_style``
 and ``imagenet_cls`` (AFHQ, MetFaces) are not.

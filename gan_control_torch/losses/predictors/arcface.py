@@ -130,6 +130,15 @@ def last_layer_dist(emb: torch.Tensor) -> torch.Tensor:
     return pairwise_sq_l2(emb)
 
 
+def predict(model: ArcFace, images: torch.Tensor) -> torch.Tensor:
+    """The identity embedding itself, [B, 512]."""
+    return model(images)[-1]
+
+
+def controller_criterion(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.square(pred - target))
+
+
 def read_reference_state_dict(path) -> dict:
     """``model_ir_se50.pth``: a state_dict in this module's names."""
     return read_torch_checkpoint(path)

@@ -85,6 +85,22 @@ def last_layer_dist(logits: torch.Tensor) -> torch.Tensor:
     return pairwise_l1(logits)
 
 
+def age_from_logits(logits: torch.Tensor) -> torch.Tensor:
+    """[B, 101] -> [B]: the softmax expectation of the age bin."""
+    probs = torch.softmax(logits, dim=-1)
+    bins = torch.arange(101, dtype=logits.dtype, device=logits.device)
+    return torch.sum(probs * bins, dim=-1)
+
+
+def predict(model: VGG16Caffe, images: torch.Tensor) -> torch.Tensor:
+    """Age in years, [B]."""
+    return age_from_logits(model(images)[-1])
+
+
+def controller_criterion(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.square(pred - target))
+
+
 def read_reference_state_dict(path) -> dict:
     """``dex_imdb_wiki.pt`` with each '-' in a name turned into '_'."""
     return {k.replace("-", "_"): v for k, v in read_torch_checkpoint(path).items()}

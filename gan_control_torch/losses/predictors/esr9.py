@@ -121,6 +121,19 @@ def last_layer_dist(emotions: torch.Tensor) -> torch.Tensor:
     return pairwise_l1(emotions)
 
 
+def predict(model: ESR9, images: torch.Tensor) -> torch.Tensor:
+    """The ensemble's vote, [B] int64: each branch votes for its argmax
+    class and the most voted class wins (the first on a tie). An argmax has
+    no gradient."""
+    emotions = model(images)[-1]  # [B, 9, 8]
+    votes = F.one_hot(torch.argmax(emotions, dim=-1), emotions.shape[-1])
+    return torch.argmax(votes.sum(dim=1), dim=-1)
+
+
+def controller_criterion(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(pred - target))
+
+
 def read_reference_state_dict(path) -> dict:
     """The ``esr_9`` directory's ten files -> one state_dict in this
     module's names (the affect head ``fc_dimensional`` dropped)."""

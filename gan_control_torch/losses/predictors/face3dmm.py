@@ -151,6 +151,15 @@ def last_layer_dist(vec: torch.Tensor) -> torch.Tensor:
     return pairwise_l1(vec)
 
 
+def predict(model: ReconNet, images: torch.Tensor) -> torch.Tensor:
+    """The 257 coefficients, [B, 257]; :func:`extract_feature` slices them."""
+    return model(images)[-1]
+
+
+def controller_criterion(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(pred - target))
+
+
 def read_reference_state_dict(path) -> dict:
     return read_torch_checkpoint(path)
 

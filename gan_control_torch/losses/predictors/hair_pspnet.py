@@ -124,6 +124,21 @@ def last_layer_dist(feat: torch.Tensor) -> torch.Tensor:
     return pairwise_hair_color(feat)
 
 
+def predict(model: HairPSPNet, images: torch.Tensor) -> torch.Tensor:
+    """The mean RGB of the hair pixels in [0, 1], [B, 3]; zero for an image
+    with less than half a hair pixel."""
+    f = model(images)[0]
+    masked, mask = f[..., :3], f[..., 3:]
+    mask_sum = torch.sum(mask, dim=(1, 2))
+    valid = mask_sum > 0.5
+    color = torch.sum(masked, dim=(1, 2)) / (mask_sum + (mask_sum < 0.5).to(mask_sum.dtype))
+    return (color * 0.5 + 0.5) * valid.to(color.dtype)
+
+
+def controller_criterion(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.square(pred - target))
+
+
 def read_reference_state_dict(path) -> dict:
     """The ``{'weight': state_dict}`` wrapper unwrapped."""
     return read_torch_checkpoint(path)["weight"]

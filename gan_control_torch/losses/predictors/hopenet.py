@@ -67,6 +67,23 @@ def last_layer_dist(logits: torch.Tensor) -> torch.Tensor:
     return pairwise_l1(logits)
 
 
+def orientation_from_logits(logits: torch.Tensor) -> torch.Tensor:
+    """[B, 3, 66] -> [B, 3] degrees: the softmax expectation of the bin
+    index, times 3, minus 99."""
+    probs = torch.softmax(logits, dim=-1)
+    idx = torch.arange(NUM_BINS, dtype=logits.dtype, device=logits.device)
+    return torch.sum(probs * idx, dim=-1) * 3.0 - 99.0
+
+
+def predict(model: Hopenet, images: torch.Tensor) -> torch.Tensor:
+    """[yaw, pitch, roll] in degrees, [B, 3]."""
+    return orientation_from_logits(model(images)[-1])
+
+
+def controller_criterion(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(pred - target))
+
+
 def read_reference_state_dict(path) -> dict:
     """A state_dict, or a pickled module holding one; ``fc_finetune``
     dropped."""

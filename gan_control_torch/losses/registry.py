@@ -74,7 +74,10 @@ def calibrate_battery(predictors: dict[str, nn.Module], images: torch.Tensor) ->
             hair.final[0].bias -= hair.mask_logit(hair.resize_input(images)).median()
 
 
-def _build_predictor(loss_name: str, block: dict, device: torch.device, seed: int) -> nn.Module:
+def build_predictor(loss_name: str, block: dict, device: torch.device, seed: int) -> nn.Module:
+    """The frozen predictor of one loss block on ``device``: weights from
+    ``model_path``, or drawn from ``seed`` with a warning when that file is
+    missing; ``eval()``, no parameter requiring a gradient."""
     mod = predictor_module(loss_name)
     model = mod.make_model(block)
     model_path = block.get("model_path", "")
@@ -119,7 +122,7 @@ def build_attr_losses(
                                   if isinstance(training_config.get(n), dict)
                                   and training_config[n].get("enabled")):
         block = training_config[loss_name]
-        model = _build_predictor(loss_name, block, device, seed + i)
+        model = build_predictor(loss_name, block, device, seed + i)
         predictors[loss_name] = model
         dist_fn = predictor_module(loss_name).last_layer_dist
 

@@ -9,6 +9,15 @@ drawn from an explicit ``torch.Generator``; a missing ``inject_index`` is
 drawn from that generator (midpoint without one). Synthesis runs in
 ``dtype`` (bf16 under ``mixed_precision``) while the mapping stays f32.
 The marge and VAE mappings are not ported yet.
+
+``remat`` (the JAX module's ``remat`` field, off unless set on the
+module, as the controller trainer does): while autograd records, each
+StyledConv of ``convs`` runs under ``torch.utils.checkpoint`` and is
+recomputed in the backward instead of keeping its activations. A recompute
+restores the global RNG, not an explicit ``torch.Generator``, so with
+``remat`` the injection noise of the whole synthesis is drawn before it
+(:meth:`Generator.draw_noise`, the draws of the layers in their order)
+and passed in.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gan_control_torch.models.blocks import (
     ConstantInput,
@@ -129,6 +139,7 @@ class Generator(nn.Module):
     ):
         super().__init__()
         self.size = size
+        self.remat = False  # see the module docstring
         self.style_dim = style_dim
         self.model_mode = model_mode
         self.noise_mode = noise_mode
@@ -203,6 +214,23 @@ class Generator(nn.Module):
                 shapes.append((batch, s, s, 1))
         return shapes
 
+    def draw_noise(self, batch: int, generator: torch.Generator | None = None,
+                   device: str | torch.device | None = None) -> list[torch.Tensor]:
+        """Per-layer injection noise ``[batch, H, W, 1]`` f32 on ``device``
+        (the generator's by default), drawn from ``generator`` in layer
+        order, as the layers of a 'normal' noise mode draw it when given
+        none."""
+        src = generator.device if generator is not None else device
+        device = src if device is None else device
+        return [torch.randn(s, generator=generator, device=src).to(device)
+                for s in self.noise_shapes(batch)]
+
+    def _styled_conv(self, k: int, x, style, noise, generator):
+        conv = self.convs[k]
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(conv, x, style, noise, use_reentrant=False)
+        return conv(x, style, noise, generator)
+
     def forward(
         self,
         styles: Sequence[torch.Tensor],
@@ -241,7 +269,10 @@ class Generator(nn.Module):
             latent = torch.where(layer_ids < inject_index, styles[0][:, None, :], styles[1][:, None, :])
 
         if noise is None:
-            noise = [None] * self.num_layers
+            if self.remat and torch.is_grad_enabled():
+                noise = self.draw_noise(latent.shape[0], generator, latent.device)
+            else:
+                noise = [None] * self.num_layers
 
         out = self.input(latent.shape[0]).to(self.dtype)
         out = self.conv1(out, latent[:, 0], noise[0], generator)
@@ -249,8 +280,8 @@ class Generator(nn.Module):
 
         i = 1
         for idx, to_rgb in enumerate(self.to_rgbs):
-            out = self.convs[2 * idx](out, latent[:, i], noise[2 * idx + 1], generator)
-            out = self.convs[2 * idx + 1](out, latent[:, i + 1], noise[2 * idx + 2], generator)
+            out = self._styled_conv(2 * idx, out, latent[:, i], noise[2 * idx + 1], generator)
+            out = self._styled_conv(2 * idx + 1, out, latent[:, i + 1], noise[2 * idx + 2], generator)
             skip = to_rgb(out, latent[:, i + 2], skip)
             i += 2
 

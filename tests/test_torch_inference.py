@@ -288,7 +288,11 @@ assert battery <= set(mods), sorted(battery - set(mods))
 real_data = {"gan_control_torch.data.native_loader", "gan_control_torch.data.prefetch",
              "gan_control_torch.train_generator", "gan_control_torch.evaluation.generation"}
 assert real_data <= set(mods), sorted(real_data - set(mods))
-assert len(mods) >= 34, mods
+phase2 = {"gan_control_torch.data.dataframe", "gan_control_torch.inference.extract_controls",
+          "gan_control_torch.trainers.controller_trainer", "gan_control_torch.make_attributes_df",
+          "gan_control_torch.train_controller"}
+assert phase2 <= set(mods), sorted(phase2 - set(mods))
+assert len(mods) >= 39, mods
 import torch
 from gan_control_torch.inference.inference import Inference
 if not torch.cuda.is_available():
