@@ -107,9 +107,27 @@ seconds:
     (kernel, shape, dtype) that phases 10-12 launched in-process, at its
     path dtype, forward and backward against the plain version, with its
     times and bound;
-15. one JSON line of per-kernel numbers over ``train(5)`` and the phase-2
-    launches of phases 10-12 (launches, times and bounds summed over both),
-    then the card's line and the result line.
+15. serving: phase 3's FFHQ-512 directory through
+    ``ServingController(buckets=(1, 4, 16, 64))`` (bf16 synthesis) with
+    the counters set to 0 before ``warmup()`` (one CUDA graph per bucket)
+    and a few uint8 requests and read after them, each capture's launches
+    against the counts derived from the modules (79 and 7, as phase 5); the
+    request latency (host clock, request to numpy; p50 and p90 of 20) of
+    ``generate`` against ``gen_batch_by_controls`` + ``.cpu()`` alternated,
+    through ``gan_control_torch/tools/serving_bench.py``, at n = 1, 3, 16
+    and 64, and of the uint8 output; each graph's replay time (CUDA
+    events), the device-busy share and images/s; capture seconds and the
+    graph pool's memory; replay against eager ``gen_batch_by_controls`` at
+    each bucket; the per-row noise across buckets; a ``torch.export``
+    program at bucket 4 (seconds, MiB) loaded by ``load_exported_serving``,
+    replayed against the live path, and its latency; bucket 1 in f32 with
+    TF32 off against the CPU; then every (kernel, shape, dtype) that the
+    serving path and that f32 check launched, forward and backward against
+    the plain version, with its times and bound;
+16. one JSON line of per-kernel numbers over ``train(5)``, the phase-2
+    launches of phases 10-12 and the serving launches of phase 15
+    (launches, times and bounds summed over the three), then the card's
+    line and the result line.
 
 Times, per launch at each shape and summed over a path's launches:
 "host-rate" is the mean over back-to-back eager calls between two CUDA
@@ -328,6 +346,18 @@ def add_to_totals(tot: dict, count: int, t: dict, t_b: float, by: str) -> None:
     for key in ("library_ms", "library_device_ms"):
         if t[key] is not None:
             tot[key] = (tot[key] or 0.0) + count * t[key]
+
+
+def merge_totals(into: dict, other: dict) -> None:
+    """Adds another path's per-kernel totals to ``into``."""
+    for n, t in other.items():
+        tot = into[n]
+        for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+            tot[key] += t[key]
+        for key in ("library_ms", "library_device_ms"):
+            if t[key] is not None:
+                tot[key] = (tot[key] or 0.0) + t[key]
+        tot["max_abs_err"] = max(tot["max_abs_err"], t["max_abs_err"])
 
 
 def totals_text(tot: dict) -> str:
@@ -1956,6 +1986,202 @@ def phase2(build_root: Path) -> tuple[Counter, dict]:
     return seen, counts
 
 
+# ---------------------------------------------------------------------------
+# serving (this slice)
+# ---------------------------------------------------------------------------
+
+SERVE_BUCKETS = (1, 4, 16, 64)
+SERVE_SIZES = (1, 3, 16, 64)  # 3 pads to bucket 4
+SERVE_REQUESTS = 20
+EXPORT_BUCKET = 4
+
+
+def replay_ms(graph, reps: int = 10) -> float:
+    """Device time of one replay of a captured request graph (CUDA events
+    around ``reps`` back-to-back replays, after one warm replay)."""
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def stats_text(s: dict) -> str:
+    return f"p50 {s['p50_ms']:.3f} ms p90 {s['p90_ms']:.3f} ms (min {s['min_ms']:.3f}, {s['requests']} requests)"
+
+
+def held_to(label: str, got: np.ndarray, want: np.ndarray, rtol: float) -> None:
+    """Prints whether two image arrays are bitwise equal, else their
+    largest difference, and fails beyond ``rtol`` of max|want|."""
+    err = float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max())
+    tol = rtol * max(1.0, float(np.abs(want).max()))
+    log(f"{label}: " + ("bitwise equal" if np.array_equal(got, want) else
+                        f"max_abs_err {err:.3g} (tol {tol:.3g})"))
+    if not (err <= tol and np.isfinite(got).all()):
+        fail(f"{label}: {err} > {tol}")
+
+
+def serving_phase(build_root: Path) -> tuple[Counter, dict, Counter]:
+    """Phase 15. Returns the launches recorded on the serving path (warmup's
+    captures and the requests, by kernel, shape, dtype and static args), the
+    counters read after it, and the launches of the f32 card-vs-CPU check."""
+    import shutil
+
+    from gan_control_torch.inference.exported import load_exported_serving
+    from gan_control_torch.inference.row_noise import row_noise
+    from gan_control_torch.inference.serving import ServingController
+    from gan_control_torch.models.blocks import EqualLinear
+    from gan_control_torch.ops import kernels
+    from gan_control_torch.tools.serving_bench import ab_latency, request_latency
+
+    root = build_root / "serving"
+    if root.exists():
+        shutil.rmtree(root)
+    ctrl_dir = root / "ffhq_controller"
+    with Phase("serving load"):
+        write_controller_dir(ctrl_dir)  # phase 3's writer: G and the orientation and age heads
+        torch.backends.cudnn.allow_tf32 = True  # the defaults; synthesis is bf16
+        torch.backends.cuda.matmul.allow_tf32 = False
+        serve = ServingController(ctrl_dir, buckets=SERVE_BUCKETS)
+        n_map, n_conv, n_up = g_counts(serve.model)
+        n_head = sum(isinstance(m, EqualLinear) and m.activation == "fused_lrelu"
+                     for fc in serve.fc_controls.values() for m in fc.modules())
+        want = {"fused_bias_act": n_map + n_head + n_conv, "blur2x_up": n_up}
+        log(f"serving: synthesis {serve.model.dtype}, heads {sorted(serve.fc_controls)}, buckets "
+            f"{serve.buckets}; launches per request derived from the modules {want}")
+        if want != {"fused_bias_act": 56 + 2 * 4 + 15, "blur2x_up": 7}:
+            fail(f"derived serving launches {want}, phase 5 derives 79 and 7")
+
+    seen: Counter = Counter()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    remove = install_launch_recorder(seen)
+    try:
+        with Phase("serving warmup"):
+            torch.cuda.empty_cache()
+            reserved0, allocated0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            serve.warmup()
+            peak = torch.cuda.max_memory_allocated() - allocated0
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_reserved() - reserved0
+            for key, entry in sorted(serve._serve_cache.items(), key=lambda kv: kv[0][4]):
+                got = {k: v for k, v in entry.launches.items() if v}
+                log(f"serving capture bucket {key[4]} groups {[g for g, _ in key[0]]}: "
+                    f"{entry.capture_seconds:.3f} s (eager warm-up, capture), launches {got}")
+                if got != want:
+                    fail(f"capture at bucket {key[4]} launched {got}, derived {want}")
+            log(f"serving memory: peak {peak / 2**30:.3f} GiB allocated during warmup (the eager "
+                f"warm-ups included); {held / 2**30:.3f} GiB held after it by the shared graph pool "
+                f"and the static buffers")
+            ctl64 = controls(64, 30)
+            z64 = np.random.default_rng(31).standard_normal((64, 512)).astype(np.float32)
+            u8 = {n: request_latency(lambda n=n: serve.generate(
+                latent=z64[:n], output="uint8", **{g: v[:n] for g, v in ctl64.items()})[0],
+                SERVE_REQUESTS) for n in SERVE_BUCKETS[-2:]}
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    finally:
+        remove()
+    log(f"serving main path (warmup, uint8 requests): launches {counts}")
+
+    with Phase("serving latency"):
+        p50 = {("uint8", serve.bucket_for(n)): (n, s["p50_ms"]) for n, s in u8.items()}
+        for n in SERVE_SIZES:
+            res = ab_latency(serve, n, SERVE_REQUESTS, {g: v[:n] for g, v in ctl64.items()},
+                             latent=z64[:n])
+            p50[("float32", serve.bucket_for(n))] = (n, res["generate"]["p50_ms"])
+            log(f"serving latency n {n} (bucket {serve.bucket_for(n)}): generate "
+                f"{stats_text(res['generate'])}; gen_batch_by_controls + .cpu() "
+                f"{stats_text(res['gen_batch_by_controls'])}; alternated, host clock, request to numpy")
+        for n, s in u8.items():
+            log(f"serving latency n {n} uint8 output: generate {stats_text(s)}")
+        for key, entry in sorted(serve._serve_cache.items(), key=lambda kv: (kv[0][3], kv[0][4])):
+            b = key[4]
+            ms = replay_ms(entry.graph)
+            n, req = p50[(key[3], b)]
+            log(f"serving replay bucket {b} {key[3]}: device {ms:.3f} ms per replay (CUDA events), "
+                f"{100 * ms / req:.1f}% of the {req:.3f} ms p50 request of {n} (device busy); "
+                f"{b / ms * 1e3:.1f} images/s on the device, {n / req * 1e3:.1f} per request")
+
+    with Phase("serving replay vs eager"):
+        for b in SERVE_BUCKETS:
+            ctl = {g: v[:b] for g, v in ctl64.items()}
+            got, _, got_w = serve.generate(latent=z64[:b], **ctl)
+            want_img, _, want_w = serve.gen_batch_by_controls(latent=z64[:b], **ctl)
+            held_to(f"serving replay vs eager bucket {b} bf16 image", got, want_img.cpu().numpy(),
+                    KERNEL_RTOL[torch.bfloat16])
+            held_to(f"serving replay vs eager bucket {b} w", got_w, want_w.cpu().numpy(), KERNEL_RTOL[torch.float32])
+        # per-row noise on the card: the first rows do not depend on the bucket
+        shapes = serve.model.noise_shapes(64)
+        seed = torch.tensor([2**40 + 7], dtype=torch.int64, device="cuda")
+        big, small = row_noise(seed, shapes), row_noise(seed, [(4, *s[1:]) for s in shapes])
+        if not all(torch.equal(a[:4], c) for a, c in zip(big, small)):
+            fail("per-row noise of bucket 4 differs from the first rows of bucket 64")
+        flat = torch.cat([x.flatten() for x in big])
+        log(f"serving per-row noise on the card: bucket 4 rows equal to bucket 64's first rows; "
+            f"{flat.numel()} values mean {float(flat.mean()):.5f} std {float(flat.std()):.5f}")
+
+    with Phase("serving export"):
+        t0 = time.perf_counter()
+        manifest = serve.export_artifacts(root / "artifacts", buckets=(EXPORT_BUCKET,))
+        export_s = time.perf_counter() - t0
+        (entry,) = manifest["artifacts"]
+        mib = (root / "artifacts" / entry["file"]).stat().st_size / 2**20
+        t0 = time.perf_counter()
+        exported = load_exported_serving(root / "artifacts")
+        ctl3 = {g: v[:3] for g, v in ctl64.items()}
+        got, _, got_w = exported.generate(latent=z64[:3], generator=torch.Generator().manual_seed(5), **ctl3)
+        load_s = time.perf_counter() - t0
+        (graph,) = exported._cache.values()
+        launched = {k: v for k, v in graph.launches.items() if v}
+        log(f"serving export: {entry['file']} ({entry['device']}, {entry['dtype']}) in {export_s:.2f} s, "
+            f"{mib:.2f} MiB; load and first request (capture) {load_s:.2f} s, launches {launched}")
+        if launched != want:
+            fail(f"the exported program's capture launched {launched}, derived {want}")
+        want_img, _, want_w = serve.generate(latent=z64[:3], generator=torch.Generator().manual_seed(5), **ctl3)
+        held_to("serving exported vs live bucket 4 bf16 image", got, want_img, KERNEL_RTOL[torch.bfloat16])
+        held_to("serving exported vs live w", got_w, want_w, KERNEL_RTOL[torch.float32])
+        s = request_latency(lambda: exported.generate(latent=z64[:3], **ctl3)[0], SERVE_REQUESTS)
+        log(f"serving latency n 3 exported program: {stats_text(s)}")
+        del exported, graph
+
+    del serve
+    torch.cuda.empty_cache()
+    seen32: Counter = Counter()
+    remove = install_launch_recorder(seen32)
+    try:
+        with Phase("serving card vs cpu"):
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            card = ServingController(ctrl_dir, buckets=(1, 4), dtype=torch.float32)
+            cpu = ServingController(ctrl_dir, buckets=(1,), device="cpu", dtype=torch.float32)
+            rng = np.random.default_rng(40)
+            noise = [rng.standard_normal(s).astype(np.float32) for s in card.model.noise_shapes(1)]
+            card.set_noise(noise)
+            cpu.set_noise(noise)
+            z4 = rng.standard_normal((4, 512)).astype(np.float32)
+            ctl4 = controls(4, 41)
+            ctl1 = {g: v[:1] for g, v in ctl4.items()}
+            want_img, _, _ = cpu.generate(latent=z4[:1], **ctl1)
+            got, _, _ = card.generate(latent=z4[:1], **ctl1)
+            held_to("serving card vs cpu bucket 1 f32 TF32 off", got, want_img, PARITY_RTOL)
+            one, _, _ = card.generate(latent=z4[:1], static_noise=False, generator=torch.Generator().manual_seed(6),
+                                      **ctl1)
+            four, _, _ = card.generate(latent=z4, static_noise=False, generator=torch.Generator().manual_seed(6),
+                                       **ctl4)
+            held_to("serving per-row noise bucket 1 vs the first row of bucket 4 (f32, TF32 off)",
+                    one, four[:1], PARITY_RTOL)
+            del card, cpu
+    finally:
+        remove()
+    return seen, counts, seen32
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU only")
@@ -2022,20 +2248,25 @@ def main() -> None:
         totals2 = train_kernel_phase(seen2, "phase 2", both_dtypes=False)
     for n in KERNELS:
         log(f"phase 2 totals {n}: launches {counts2[n]} " + totals_text(totals2[n]))
-        tot = totals[n]
-        for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
-            tot[key] += totals2[n][key]
-        for key in ("library_ms", "library_device_ms"):
-            if totals2[n][key] is not None:
-                tot[key] = (tot[key] or 0.0) + totals2[n][key]
-        tot["max_abs_err"] = max(tot["max_abs_err"], totals2[n]["max_abs_err"])
+    merge_totals(totals, totals2)
+
+    # 15. serving
+    seen3, counts3, seen32 = serving_phase(build_root)
+    with Phase("serving kernels"):
+        totals3 = train_kernel_phase(seen3, "serving", both_dtypes=False)
+        train_kernel_phase(seen32, "the serving f32 check", both_dtypes=False)
+    for n in INFER_KERNELS:
+        log(f"serving totals {n}: launches {counts3[n]} " + totals_text(totals3[n]))
+    if any(counts3[n] for n in KERNELS if n not in INFER_KERNELS) or not all(counts3[n] for n in INFER_KERNELS):
+        fail(f"the serving path launched {counts3}")
+    merge_totals(totals, totals3)
 
     entries = []
     for n, (route, src, replaces) in KERNELS.items():
         tot = totals[n]
         entries.append({
             "name": n, "route": route, "source": src, "replaces": replaces,
-            "launches": counts[n] + counts2[n], "max_abs_err": tot["max_abs_err"],
+            "launches": counts[n] + counts2[n] + counts3[n], "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",

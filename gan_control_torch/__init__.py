@@ -18,8 +18,12 @@ image folders (``data``) with the contrastive attribute losses of the FFHQ
 configuration (``losses``: the criterion, the registry and six frozen
 predictors, which take the reference checkpoints' ``state_dict`` names and
 run on cuDNN), both mini-batch modes, sample images (``evaluation``) and
-whole-state checkpoints that either package resumes. Not yet: the AFHQ and
-MetFaces predictors, ADA, transfer learning, evaluation, phase 2.
+whole-state checkpoints that either package resumes; phase 2 (the
+attribute sweep and controller training); serving (``inference.serving``:
+one CUDA graph per group set and batch bucket, ``torch.export`` artifacts
+served without the model code) and group interpolation. Not yet: the AFHQ
+and MetFaces predictors, ADA, transfer learning, evaluation, multi-card
+serving.
 
 The package imports neither JAX nor ``gan_control_tpu``.
 """

@@ -35,6 +35,13 @@ the counting happens in the ``_cuda_*`` launchers. The Functions do not
 materialize missing gradients: a backward that receives none (a branch of
 a double backward that no parameter depends on) launches nothing.
 
+For ``torch.export`` the two kernels of the generation path,
+``fused_bias_act`` and ``blur2x_up``, are also custom ops
+(``gan_control_torch::fused_bias_act`` and ``::blur2x_up``): while a program
+is exported the wrappers call them, so the exported graph holds them as
+nodes; an op runs the same launcher on CUDA tensors and the plain version
+on CPU tensors.
+
 The CUDA libraries are built at first use (or by :func:`build`) into
 ``build/gan_control_torch/`` of the checkout, under a name that carries a
 hash of the source, so a changed source is never served by a stale build.
@@ -357,6 +364,8 @@ def fused_bias_act(
     if not x.is_contiguous():
         raise ValueError("fused_bias_act: x must be contiguous with channels last")
     _check_bias("fused_bias_act", x, bias)
+    if torch.compiler.is_exporting():
+        return torch.ops.gan_control_torch.fused_bias_act(x, bias, negative_slope, scale)
     if _plain_path(x):
         return fused_bias_act_plain(x, bias, negative_slope, scale)
     return _FusedBiasAct.apply(x, bias, negative_slope, scale)
@@ -560,6 +569,8 @@ def blur2x_up(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
     ``blur2x_down`` with the coefficients reversed."""
     _check_nhwc("blur2x_up", x)
     k = _up_coefs(tuple(taps))
+    if torch.compiler.is_exporting():
+        return torch.ops.gan_control_torch.blur2x_up(x, k)
     if _plain_path(x):
         return _up_plain(x, k)
     if not (x.requires_grad and torch.is_grad_enabled()):
@@ -715,6 +726,52 @@ def blur_sep(x: torch.Tensor, row_taps, col_taps, pad) -> torch.Tensor:
 
 
 blur_sep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the export route of the generation path's two kernels (custom ops)
+#
+# torch.export traces neither the ctypes launchers nor the Triton launch, so
+# while a program is being exported (torch.compiler.is_exporting()) the
+# fused_bias_act and blur2x_up wrappers call these ops instead, and the
+# exported graph holds them as nodes. Each op runs the launcher on CUDA
+# tensors (the kernel or an error, as the wrapper's own path) and the plain
+# version on CPU tensors; its fake implementation gives the output's shape
+# and type to the tracer. Importing this module registers them, which is all
+# that a program loaded with torch.export.load needs of the port.
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("gan_control_torch::fused_bias_act", mutates_args=(), device_types="cpu")
+def _fused_bias_act_op(x: torch.Tensor, bias: torch.Tensor, negative_slope: float,
+                       scale: float) -> torch.Tensor:
+    return fused_bias_act_plain(x, bias, negative_slope, scale)
+
+
+@_fused_bias_act_op.register_kernel("cuda")
+def _(x, bias, negative_slope, scale):
+    return _cuda_fused_bias_act(x, bias, negative_slope, scale)
+
+
+@_fused_bias_act_op.register_fake
+def _(x, bias, negative_slope, scale):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("gan_control_torch::blur2x_up", mutates_args=(), device_types="cpu")
+def _blur2x_up_op(x: torch.Tensor, coefs: list[float]) -> torch.Tensor:
+    return _up_plain(x, tuple(coefs))
+
+
+@_blur2x_up_op.register_kernel("cuda")
+def _(x, coefs):
+    return _cuda_blur2x_up(x, tuple(coefs))
+
+
+@_blur2x_up_op.register_fake
+def _(x, coefs):
+    n, h, w, c = x.shape
+    return x.new_empty((n, 2 * h, 2 * w, c))
 
 
 # ---------------------------------------------------------------------------

@@ -273,6 +273,7 @@ import gan_control_torch
 mods = [m.name for m in pkgutil.walk_packages(gan_control_torch.__path__, "gan_control_torch.")]
 for name in mods:
     importlib.import_module(name)
+importlib.import_module("gan_control_torch.tools.serving_bench")  # tools/ is not a package
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "gan_control_tpu"))
 assert not bad, bad
@@ -292,7 +293,10 @@ phase2 = {"gan_control_torch.data.dataframe", "gan_control_torch.inference.extra
           "gan_control_torch.trainers.controller_trainer", "gan_control_torch.make_attributes_df",
           "gan_control_torch.train_controller"}
 assert phase2 <= set(mods), sorted(phase2 - set(mods))
-assert len(mods) >= 39, mods
+serving = {f"gan_control_torch.inference.{m}" for m in (
+    "serving", "exported", "graphs", "row_noise", "interpolation")}
+assert serving <= set(mods), sorted(serving - set(mods))
+assert len(mods) >= 45, mods
 import torch
 from gan_control_torch.inference.inference import Inference
 if not torch.cuda.is_available():
