@@ -124,10 +124,30 @@ seconds:
     TF32 off against the CPU; then every (kernel, shape, dtype) that the
     serving path and that f32 check launched, forward and backward against
     the plain version, with its times and bound;
-16. one JSON line of per-kernel numbers over ``train(5)``, the phase-2
-    launches of phases 10-12 and the serving launches of phase 15
-    (launches, times and bounds summed over the three), then the card's
-    line and the result line.
+16. evaluation: 2304 seeded RGB PNGs of 256 px; ``python -m
+    gan_control_torch.calc_inception --size 512 --n_samples 2304`` (random
+    Inception, with its warning) writes the real statistics; ``python -m
+    gan_control_torch.train_generator --iters 3`` on configs/ffhq.json at
+    full width (batch 16, the six-loss battery at random init, the folder as
+    its data, TensorBoard and the CSV monitor on) with every evaluation due
+    at iteration 2: FID against those statistics with a random Inception on
+    2304 samples (cut from 50 000), separability and both histograms on the
+    config's 2000; its metrics record, ``best_fid.ckpt``, bucket image,
+    plots and annotated matrices, and no "not ported" warning; then a fresh
+    ``GeneratorTrainer`` loads ``best_fid.ckpt`` and runs each evaluation
+    in-process with the counters set to 0 just before and read just after,
+    against the launches derived from the modules (also of one FID chunk,
+    separability batch and histogram batch), with its seconds and the peak
+    memory; the logged FID against its recomputation from the same
+    features in float64 on the CPU; the FID chunk's images/s at chunks 16
+    and 64, its device-busy share and the 50 000-sample time they give;
+    Inception card against CPU (batch 2, 512 px, f32, TF32 off); then every
+    (kernel, shape, dtype) that the evaluation launched, forward and
+    backward against the plain version, with its times and bound;
+17. one JSON line of per-kernel numbers over ``train(5)``, the phase-2
+    launches of phases 10-12, the serving launches of phase 15 and the
+    evaluation launches of phase 16 (launches, times and bounds summed over
+    the four), then the card's line and the result line.
 
 Times, per launch at each shape and summed over a path's launches:
 "host-rate" is the mean over back-to-back eager calls between two CUDA
@@ -2182,6 +2202,247 @@ def serving_phase(build_root: Path) -> tuple[Counter, dict, Counter]:
     return seen, counts, seen32
 
 
+# ---------------------------------------------------------------------------
+# phase-1 evaluation (this slice)
+# ---------------------------------------------------------------------------
+
+# real images for the statistics: more than Inception's 2048 features, so
+# that their covariance has full rank and sqrt(C1 C2) is well defined
+EVAL_IMAGES = 2304
+EVAL_PX = 256
+# the FID's generated samples: cut from the config's 50 000, and more than
+# 2048 for the same reason
+FID_SAMPLES = 2304
+EVAL_AT = 2  # min_evaluate_interval and every evaluation interval
+EVAL_ITERS = 3
+FID_CHUNKS = (16, 64)
+SWEEP_CHUNKS = 12  # timed chunks per chunk size
+FID_RECOMPUTE_RTOL = 1e-9
+
+
+def eval_config(folder: Path, stats_path: Path, results_dir: Path) -> dict:
+    """configs/ffhq.json at full width with every evaluation, TensorBoard and
+    the CSV monitor on, due at iteration EVAL_AT: FID against
+    ``stats_path`` with a random Inception and FID_SAMPLES samples,
+    separability and both histograms at the config's 2000 samples, the
+    sample images at 0 and EVAL_AT, data from ``folder``."""
+    config = json.loads((CONFIGS / "ffhq.json").read_text())
+    config["results_dir"] = str(results_dir)
+    config["data_config"]["path"] = str(folder)
+    config["tensorboard_config"]["enabled"] = True
+    config["monitor_config"]["enabled"] = True
+    config["training_config"].update(min_evaluate_interval=EVAL_AT, save_images_interval=EVAL_AT,
+                                     save_nets_interval=1000, log_every=1)
+    ec = config["evaluation_config"]
+    ec["fid"].update(inception_weights="__random__", inception_stat_path=str(stats_path),
+                     fid_interval=EVAL_AT, num_of_samples=FID_SAMPLES)
+    ec["separability"]["separability_interval"] = EVAL_AT
+    for kind in ("orientation_hist", "expression_bar"):
+        ec[kind][f"{kind}_interval"] = EVAL_AT
+    return config
+
+
+def inception_card_vs_cpu(seed: int = 0) -> float:
+    """The FID net (random init, seed 42) on the card and on the CPU, batch
+    2 of 512-px images (the resize to 299 included), f32 with TF32 off:
+    the features to PREDICTOR_RTOL of their largest entry. Returns the
+    error over that entry."""
+    from gan_control_torch.evaluation import fid as fid_lib
+    from gan_control_torch.evaluation.inception import load_inception
+
+    cpu = load_inception("__random__", "cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    x = torch.from_numpy(np.random.default_rng(seed).random((2, 512, 512, 3)).astype(np.float32))
+    want = fid_lib.make_feature_fn(cpu)(x)
+    got = fid_lib.make_feature_fn(card)(x.cuda()).cpu()
+    err, scale = max_err(got, want)
+    log(f"inception card vs cpu: batch 2, 512 px, f32 TF32 off, features {tuple(got.shape)}: "
+        f"max error {err:.3g} / max|features| {scale:.3g} = {err / scale:.2e} (tol {PREDICTOR_RTOL})")
+    if not bool(torch.isfinite(got).all()) or err > PREDICTOR_RTOL * scale:
+        fail("Inception: card and CPU disagree")
+    return err / scale
+
+
+def fid_sweep(g_ema, inception, chunk: int) -> dict:
+    """The FID chunk (G + Inception, features to the host) at ``chunk``:
+    images/s over SWEEP_CHUNKS warm chunks between syncs, host clock; the
+    device time of one chunk (profiler) and its share of a chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gan_control_torch.evaluation import fid as fid_lib
+
+    run = fid_lib.make_gen_feature_fn(g_ema, inception, chunk)
+    gen = torch.Generator(device="cuda").manual_seed(chunk)
+    for _ in range(2):
+        run(gen).cpu()
+    per = synced_ms(lambda: run(gen).cpu(), SWEEP_CHUNKS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(gen).cpu()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    med = statistics.median(per)
+    return {"chunk": chunk, "ms": med, "images_per_s": chunk * 1e3 / med, "device_ms": busy,
+            "busy": busy / med}
+
+
+def evaluation_phase(build_root: Path) -> tuple[Counter, dict]:
+    """Phase 16. Returns the launches recorded on the evaluation path (one
+    in-process evaluation of each kind at iteration EVAL_AT, by kernel,
+    shape, dtype and static args) and their counts."""
+    import shutil
+
+    from gan_control_torch.data.datasets import synthetic_data_loader
+    from gan_control_torch.evaluation import fid as fid_lib
+    from gan_control_torch.evaluation.inception import load_inception
+    from gan_control_torch.losses.registry import build_attr_losses
+    from gan_control_torch.trainers.generator_trainer import GeneratorTrainer
+
+    root = build_root / "evaluation"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    with Phase("evaluation folder write"):
+        folder = write_image_folder(root / "images", EVAL_IMAGES, EVAL_PX, seed=5)
+    stats_path = root / "real_stats.pkl"
+    with Phase("evaluation calc_inception"):
+        t0 = time.perf_counter()
+        lines = run_cli("gan_control_torch.calc_inception",
+                        ["--path", str(folder), "--size", "512", "--n_samples", str(EVAL_IMAGES),
+                         "--save_path", str(stats_path)], root / "calc_inception.log", 600)
+        secs = time.perf_counter() - t0
+        if not any("random inception weights" in ln for ln in lines):
+            fail("calc_inception did not warn of its random weights")
+        mu, cov = fid_lib.load_stats(stats_path)
+        eig = np.linalg.eigvalsh(cov)
+        log(f"calc_inception: {EVAL_IMAGES} PNGs of {EVAL_PX} px resized to 512, random Inception "
+            f"(seed 42), {secs:.1f} s in its process; stats mean {mu.shape} cov {cov.shape}, the "
+            f"covariance's eigenvalues {eig.min():.3g} to {eig.max():.3g}")
+        if mu.shape != (2048,) or cov.shape != (2048, 2048) or not np.isfinite(cov).all():
+            fail("calc_inception wrote statistics of the wrong shape")
+
+    config = eval_config(folder, stats_path, root / "results")
+    cfg_path = root / "eval_config.json"
+    cfg_path.write_text(json.dumps(config))
+    with Phase("evaluation train_generator"):
+        t0 = time.perf_counter()
+        lines = run_cli("gan_control_torch.train_generator",
+                        ["--config_path", str(cfg_path), "--iters", str(EVAL_ITERS)],
+                        root / "train_generator.log", 900)
+        secs = time.perf_counter() - t0
+        text = "\n".join(lines)
+        bad = [ln for ln in lines if "not ported" in ln]
+        if bad:
+            fail(f"train_generator logged: {bad[:3]}")
+        save_dir = Path(re.search(r"save dir: (\S+)", text)[1])
+        recs = [json.loads(ln) for ln in (save_dir / "metrics.jsonl").read_text().splitlines()]
+        rec = next((r for r in recs if r["iter"] == EVAL_AT and "fid" in r), None)
+        keys = ("fid", "best_fid", "separability/embedding_loss/l0_same_mean",
+                "separability/embedding_loss/l0_2ndbest_mean", "separability/embedding_loss/l0_margin",
+                "orientation/yaw_std")
+        if rec is None or not all(k in rec and math.isfinite(rec[k]) for k in keys):
+            fail(f"metrics.jsonl at iteration {EVAL_AT} lacks a finite {keys}: {rec}")
+        files = ["checkpoint/best_fid.ckpt", f"buckets/embedding_loss/{EVAL_AT:06d}.jpg",
+                 f"graphs/orientation_{EVAL_AT:06d}.jpg", f"graphs/expression_{EVAL_AT:06d}.jpg",
+                 "monitor.csv"] + [f"images/{k}_matrix/{EVAL_AT:06d}.jpg" for k in
+                                   ("orientation", "expression", "age", "hair", "attribute")]
+        missing = [f for f in files if not (save_dir / f).is_file()]
+        if missing:
+            fail(f"the evaluation run left no {missing}")
+        events = list((save_dir / "tensorboard").glob("events.out.tfevents.*"))
+        log(f"evaluation train_generator: configs/ffhq.json at full width, batch 16, the six-loss "
+            f"battery at random init, {EVAL_ITERS} iterations from {EVAL_IMAGES} PNGs, every "
+            f"evaluation at iteration {EVAL_AT} (FID on {FID_SAMPLES} samples, cut from 50 000; "
+            f"separability and both histograms on 2000), {secs:.1f} s in its process; fid "
+            f"{rec['fid']:.6f}, best_fid {rec['best_fid']:.6f}, separability margin "
+            f"{rec['separability/embedding_loss/l0_margin']:.6g}, yaw std "
+            f"{rec['orientation/yaw_std']:.6g}; files {len(files)} present; TensorBoard events "
+            f"written: {bool(events)} ({sum(p.stat().st_size for p in events)} bytes)")
+
+    seen: Counter = Counter()
+    counts: dict = {n: 0 for n in KERNELS}
+    with Phase("evaluation in-process"):
+        cfg2 = json.loads(json.dumps(config))
+        cfg2["results_dir"] = str(root / "in_process")
+        cfg2["ckpt_config"] = {"enabled": True, "ckpt": str(save_dir / "checkpoint" / "best_fid.ckpt")}
+        attr_losses, predictors = build_attr_losses(cfg2["training_config"], device="cuda")
+        tr = GeneratorTrainer(config=cfg2, device="cuda", attr_losses=attr_losses, predictors=predictors,
+                              data_loader=synthetic_data_loader(16, 512))
+        if tr.start_iter != 0 or tr.state.step != EVAL_ITERS:
+            fail(f"best_fid.ckpt loaded at start_iter {tr.start_iter}, step {tr.state.step}")
+        n_map, n_conv, n_up = g_counts(tr.state.g_ema)
+        per_forward = row(n_map + n_conv, 0, n_up, 0)
+        ec = cfg2["evaluation_config"]
+        batch = cfg2["training_config"]["batch"]
+        forwards = {"fid": -(-FID_SAMPLES // batch),
+                    "separability": -(-ec["separability"]["num_of_samples"] // 20) + 1,
+                    "orientation_hist": -(-ec["orientation_hist"]["num_of_samples"] // batch),
+                    "expression_bar": -(-ec["expression_bar"]["num_of_samples"] // batch)}
+        out = {}
+        kinds = (("fid", lambda: out.update(fid=tr.evaluate_fid())),
+                 ("separability", lambda: tr.evaluate_separability(EVAL_AT)),
+                 ("orientation_hist", lambda: tr.evaluate_attribute_hist(
+                     EVAL_AT, "orientation_hist", "orientation_loss", ec["orientation_hist"])),
+                 ("expression_bar", lambda: tr.evaluate_attribute_hist(
+                     EVAL_AT, "expression_bar", "expression_loss", ec["expression_bar"])))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kind, fn in kinds:
+            t0 = time.perf_counter()
+            got = launches_of(fn, seen)
+            secs = time.perf_counter() - t0
+            want = {n: forwards[kind] * c for n, c in per_forward.items()}
+            log(f"evaluation {kind}: {secs:.2f} s, {forwards[kind]} G forwards, launches "
+                f"{ {n: c for n, c in got.items() if c} } (derived {want})")
+            if got != want:
+                fail(f"evaluation {kind}: launches {got}, derived {want}")
+            add_counts(counts, got)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"evaluation peak memory {peak:.2f} GiB allocated (train state, the battery and the "
+            f"FID net alive), {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        tr.tracker.register_fid(EVAL_AT, out["fid"])
+        rec2 = tr.tracker.write_stats(EVAL_AT)
+        t0 = time.perf_counter()
+        recomputed = fid_lib.frechet_distance(*fid_lib.compute_stats(tr.fid_features),
+                                              *fid_lib.load_stats(stats_path))
+        t_fd = time.perf_counter() - t0
+        rel = abs(recomputed - rec2["fid"]) / abs(recomputed)
+        log(f"evaluation fid: logged {rec2['fid']:.9f}, recomputed on the CPU in float64 from the "
+            f"same {tr.fid_features.shape} features {recomputed:.9f} (relative {rel:.2e}, tol "
+            f"{FID_RECOMPUTE_RTOL}; the Frechet distance {t_fd:.2f} s on the host); the command "
+            f"line's {rec['fid']:.9f} from the same checkpoint in another process (relative "
+            f"{abs(rec['fid'] - recomputed) / abs(recomputed):.2e})")
+        if not rel <= FID_RECOMPUTE_RTOL:
+            fail("the logged FID is not the FID of its features")
+        one = Counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        z20 = torch.randn((20, 512), generator=gen, device="cuda")
+        for label, fn in (("FID chunk", lambda: tr._fid_chunk(gen)),
+                          ("separability batch", lambda: tr._separability_images(z20, gen)),
+                          ("histogram batch", lambda: tr.state.g_ema([z20[:batch]], generator=gen))):
+            got = launches_of(fn, one)
+            log(f"evaluation launches of one {label}: {got} (derived {per_forward})")
+            if got != per_forward:
+                fail(f"one {label}: launches {got}, derived {per_forward}")
+
+    with Phase("evaluation fid sweep"):
+        inception = load_inception("__random__", "cuda")
+        sweeps = [fid_sweep(tr.state.g_ema, inception, chunk) for chunk in FID_CHUNKS]
+        for sw in sweeps:
+            log(f"evaluation fid sweep chunk {sw['chunk']}: {sw['ms']:.2f} ms per chunk (median of "
+                f"{SWEEP_CHUNKS}), {sw['images_per_s']:.1f} images/s (G bf16 + Inception f32 TF32 "
+                f"off); device {sw['device_ms']:.2f} ms per chunk = {100 * sw['busy']:.1f}% busy; a "
+                f"50 000-sample FID {50_000 / sw['images_per_s']:.1f} s of chunks + "
+                f"{t_fd:.1f} s of Frechet distance")
+    with Phase("evaluation inception card vs cpu"):
+        inception_card_vs_cpu()
+    del tr, attr_losses, predictors, inception
+    torch.cuda.empty_cache()
+    return seen, counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU only")
@@ -2261,12 +2522,23 @@ def main() -> None:
         fail(f"the serving path launched {counts3}")
     merge_totals(totals, totals3)
 
+    # 16. evaluation
+    seen4, counts4 = evaluation_phase(build_root)
+    with Phase("evaluation kernels"):
+        totals4 = train_kernel_phase(seen4, "evaluation", both_dtypes=False)
+    for n in INFER_KERNELS:
+        log(f"evaluation totals {n}: launches {counts4[n]} " + totals_text(totals4[n]))
+    if any(counts4[n] for n in KERNELS if n not in INFER_KERNELS) or not all(counts4[n] for n in INFER_KERNELS):
+        fail(f"the evaluation path launched {counts4}")
+    merge_totals(totals, totals4)
+
     entries = []
     for n, (route, src, replaces) in KERNELS.items():
         tot = totals[n]
         entries.append({
             "name": n, "route": route, "source": src, "replaces": replaces,
-            "launches": counts[n] + counts2[n] + counts3[n], "max_abs_err": tot["max_abs_err"],
+            "launches": counts[n] + counts2[n] + counts3[n] + counts4[n],
+            "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",

@@ -1,5 +1,5 @@
-"""Sample grids and per-group disentanglement matrices (port of the part of
-``gan_control_tpu/evaluation/generation.py`` that the trainer uses).
+"""Sample grids and per-group disentanglement matrices (port of
+``gan_control_tpu/evaluation/generation.py``).
 
 A matrix is R x C images where every image of a row shares one group's
 sub-latent and every image of a column shares the rest of the latent, made
@@ -57,3 +57,23 @@ def make_matrix_latents(generator: torch.Generator | None = None, ids_in_row: in
     lat = poses[None, :, :].repeat(pose_in_col, 1, 1)
     lat[:, :, s:e] = ids[:, None, s:e]
     return lat.reshape(pose_in_col * ids_in_row, style_dim)
+
+
+@torch.no_grad()
+def gen_grid_images(model, latent: torch.Tensor, generator: torch.Generator | None = None,
+                    noise=None) -> torch.Tensor:
+    """[0, 1] f32 images of ``model`` from the z ``latent``, clipped; the
+    injection noise is ``noise`` or drawn from ``generator``."""
+    img, _ = model([latent], noise=noise, generator=generator)
+    return torch.clamp(img.float() * 0.5 + 0.5, 0.0, 1.0)
+
+
+def gen_matrix_images(model, generator: torch.Generator | None = None, ids_in_row: int = 6,
+                      pose_in_col: int = 6, same_chunk: tuple[int, int] = (256, 512),
+                      style_dim: int = 512, noise=None) -> torch.Tensor:
+    """[0, 1] images of the disentanglement matrix of
+    :func:`make_matrix_latents`, in one batched forward. The donors, then
+    the noise unless given, are drawn from ``generator``."""
+    latents = make_matrix_latents(generator, ids_in_row, pose_in_col, style_dim, same_chunk)
+    device = next(model.parameters()).device
+    return gen_grid_images(model, latents.to(device), generator=generator, noise=noise)

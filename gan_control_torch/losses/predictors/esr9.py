@@ -42,6 +42,10 @@ from gan_control_torch.losses.predictors.common import (
     to_nhwc,
 )
 
+# the ensemble's eight classes, in its output order
+EXPRESSION_CLASSES = (
+    "Neutral", "Happy", "Sad", "Surprise", "Fear", "Disgust", "Anger", "Contempt",
+)
 NUM_BRANCHES = 9
 INPUT_SIZE = 96
 BASE_FILE = "Net-Base-Shared_Representations.pt"

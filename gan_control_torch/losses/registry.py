@@ -12,6 +12,8 @@ predictor none.
 The recon-3d sub-losses share one R-Net module and one forward per step
 (``share_key``). ``style_loss``, ``dog_id_loss`` and ``classification_loss``
 (AFHQ, MetFaces) are not ported: a config that enables one raises.
+``build_eval_only`` builds the predictor of a loss that only an evaluation
+uses.
 """
 
 from __future__ import annotations
@@ -19,7 +21,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gan_control_torch.losses.contrastive import ContrastiveConfig
+from gan_control_torch.losses.contrastive import (
+    ContrastiveConfig,
+    pairwise_hair_color,
+    pairwise_l1,
+    pairwise_sq_l2,
+)
 from gan_control_torch.losses.predictors import NOT_PORTED, PREDICTOR_MODULES, predictor_module
 from gan_control_torch.losses.predictors.common import calibrate_frozen_stats_, init_predictor_
 from gan_control_torch.losses.predictors.face3dmm import extract_feature
@@ -32,6 +39,17 @@ from gan_control_torch.utils.weights import load_pretrained
 _log = get_logger(__name__)
 
 RECON_SUB_LOSSES = ("id", "ex", "tex", "angles", "gamma", "xy", "z")
+
+# each ported loss's criterion between two sets of embeddings
+PAIRWISE_DIST = {
+    "embedding_loss": pairwise_sq_l2,
+    "orientation_loss": pairwise_l1,
+    "age_loss": pairwise_l1,
+    "expression_loss": pairwise_l1,
+    "recon_3d_loss": pairwise_l1,
+    "hair_loss": pairwise_hair_color,
+}
+
 
 def distinct_predictors(predictors: dict[str, nn.Module]) -> dict[str, nn.Module]:
     """loss name -> module, each distinct module once, under the first name
@@ -143,6 +161,7 @@ def build_attr_losses(
                     feature_fn=with_precision(
                         lambda m, images, which=sub: [extract_feature(m(images)[-1], which)]),
                     dist_fn=dist_fn,
+                    pair_dist_fn=pairwise_l1,
                     share_key="recon_3d_loss",
                     shared_forward_fn=shared_forward,
                     extract_fn=lambda vec, which=sub: [extract_feature(vec, which)],
@@ -155,6 +174,26 @@ def build_attr_losses(
             cfg=ContrastiveConfig.from_json(block),
             feature_fn=with_precision(lambda m, images: m(images)),
             dist_fn=dist_fn,
+            pair_dist_fn=PAIRWISE_DIST[loss_name],
         ))
     return tuple(specs), predictors
 
+
+def build_eval_only(loss_name: str, training_config: dict, device: str | torch.device | None = None,
+                    seed: int = 23) -> tuple[AttributeLossSpec, nn.Module] | None:
+    """The spec and frozen predictor of a loss that an evaluation names but
+    training leaves disabled: :func:`build_attr_losses` on its block with
+    ``enabled`` set (pretrained weights from ``model_path``, else random
+    from ``seed`` with a warning), at the battery's ``predictor_precision``.
+    None when the block is absent or builds no spec of that name (the
+    recon-3d block builds its sub-losses); a predictor that is not ported
+    raises."""
+    block = training_config.get(loss_name)
+    if not isinstance(block, dict):
+        return None
+    specs, predictors = build_attr_losses(
+        {loss_name: dict(block, enabled=True),
+         "predictor_precision": training_config.get("predictor_precision")},
+        device=device, seed=seed)
+    spec = next((s for s in specs if s.name == loss_name), None)
+    return None if spec is None else (spec, predictors[loss_name])

@@ -22,19 +22,28 @@ either package resumes from the other's files (``ckpt_config``) and both
 packages' ``Inference`` read ``g_ema`` from them. Periodic saves are
 written on a worker thread; the final save and the one that SIGTERM or
 SIGINT asks for (at ``i + 1``, after the iteration in flight) block.
-Sample grids go to ``images/samples`` and one matrix per latent group to
-``images/<group>``.
+Sample grids go to ``images/samples``, one matrix per latent group to
+``images/<group>``, and the matrices annotated with the battery's
+predictions to ``images/<kind>_matrix``.
 
-Not ported yet: ADA and transfer learning (they raise), the evaluations of
-``evaluation_config`` (FID, separability, the attribute histograms) and the
-annotated attribute matrices, the ``Tracker`` (TensorBoard, CSV), and
-multi-device training. An enabled evaluation or TensorBoard logs a warning
-that ``train`` skips it.
+Metrics go through the ``Tracker`` (``metrics.jsonl``; ``monitor.csv`` with
+``monitor_config``; TensorBoard with ``tensorboard_config``) every
+``log_every`` iterations. ``evaluation_config`` runs on the JAX trainer's
+cadence (:meth:`GeneratorTrainer._eval_due`): FID against a statistics
+pickle (``best_fid.ckpt`` on a best or tied FID), separability with the
+closest-impostor "bucket" images, and the orientation histogram and the
+expression bar under ``graphs/``. Their z and noise come from
+``torch.Generator``s seeded as the JAX trainer seeds its keys (FID 0,
+separability ``i`` and ``i + 1``, the histograms ``1000 + i``).
+
+Not ported yet: ADA and transfer learning (they raise) and multi-device
+training.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 import signal
 import time
 from pathlib import Path
@@ -46,9 +55,20 @@ from torch import nn
 
 from gan_control_torch.data.datasets import get_data_loader, synthetic_data_loader
 from gan_control_torch.data.prefetch import DeviceFeeder
-from gan_control_torch.evaluation.generation import make_matrix_latents, save_image_grid
+from gan_control_torch.evaluation import fid as fid_lib
+from gan_control_torch.evaluation.attribute_evals import annotate_attribute_images
+from gan_control_torch.evaluation.generation import (
+    gen_grid_images,
+    make_matrix_latents,
+    save_image_grid,
+)
+from gan_control_torch.evaluation.separability import calc_separability
+from gan_control_torch.evaluation.tracker import Tracker
 from gan_control_torch.latent.groups import random_arrangement
-from gan_control_torch.losses.registry import cast_predictor_params
+from gan_control_torch.losses.contrastive import pairwise_sq_l2
+from gan_control_torch.losses.predictors import predictor_module
+from gan_control_torch.losses.predictors.esr9 import EXPRESSION_CLASSES
+from gan_control_torch.losses.registry import build_eval_only, build_predictor, cast_predictor_params
 from gan_control_torch.models.factory import (
     build_discriminator,
     build_generator,
@@ -73,6 +93,8 @@ from gan_control_torch.utils.config import (
 from gan_control_torch.utils.device import resolve_device
 from gan_control_torch.utils.flax_bridge import gan_state_to_flax, load_gan_state
 from gan_control_torch.utils.logging_utils import get_logger
+from gan_control_torch.utils.plotting import plot_bar, plot_hist
+from gan_control_torch.utils.precision import predictor_precision_ctx
 
 _log = get_logger(__name__)
 
@@ -123,13 +145,6 @@ class GeneratorTrainer:
         if tc.get("transfer_learning_model", {}).get("enabled"):
             raise _not_ported("transfer learning")
         self.device = resolve_device(device)
-        for kind, block in self.config.get("evaluation_config", {}).items():
-            if isinstance(block, dict) and block.get("enabled"):
-                _log.warning("evaluation_config.%s is enabled; evaluation is not ported to "
-                             "gan_control_torch yet, so train() skips it", kind)
-        if self.config.get("tensorboard_config", {}).get("enabled"):
-            _log.warning("tensorboard_config is enabled; the Tracker is not ported to "
-                         "gan_control_torch yet, so train() writes no TensorBoard events")
 
         self.save_dir = None
         if init_dirs:
@@ -200,6 +215,22 @@ class GeneratorTrainer:
         self.step_times: dict[str, list[float]] = {k: [] for k in STEP_KINDS}
         self._sample_z_fixed: torch.Tensor | None = None
 
+        self.tracker = Tracker(
+            save_dir=self.save_dir,
+            tensorboard=bool(self.config.get("tensorboard_config", {}).get("enabled"))
+            and self.save_dir is not None,
+            csv_monitor=self.config.get("monitor_config", {}).get("enabled", False),
+        )
+        ec = self.config.get("evaluation_config", {})
+        self.fid_cfg = ec.get("fid", {"enabled": False})
+        self.separability_cfg = ec.get("separability", {"enabled": False})
+        self._fid_chunk = None
+        # the features of the last FID, [n, 2048] f32
+        self.fid_features: np.ndarray | None = None
+        # eval-only nets and specs, for losses that training leaves disabled
+        self._eval_predictors: dict[str, nn.Module] = {}
+        self._eval_specs: dict[str, AttributeLossSpec] = {}
+
     # ------------------------------------------------------------------
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -218,6 +249,7 @@ class GeneratorTrainer:
     def close(self) -> None:
         """Stop the prefetch thread and close the loader (unless the thread
         is still inside it)."""
+        self.tracker.close()
         feeder, self._feeder = self._feeder, None
         if feeder is not None and not feeder.close():
             return
@@ -329,12 +361,14 @@ class GeneratorTrainer:
 
         def flush(it: int, metrics: dict) -> None:
             vals = {k: float(v) for k, v in metrics.items()}
+            self.tracker.write_stats(it, extra=vals)
             vals["iter"] = it
             self.metrics_history.append(vals)
             _log.info("iter %d: %s", it, vals)
 
         try:
             for i in range(self.start_iter, total):
+                self.tracker.mark_start_iter()
                 t0 = time.perf_counter()
                 metrics = self.one_iteration(i)
                 # read last iteration's (finished) metrics, not this one's
@@ -347,6 +381,7 @@ class GeneratorTrainer:
                         self.save_images(i)
                     if i % save_nets_interval == 0 and (not debug or nets_in_debug):
                         self.save_nets(i)
+                self.evaluate(i)
                 if preempted:
                     _log.warning("signal %d received: checkpointing at iter %d", preempted[0], i + 1)
                     if self.save_dir:
@@ -359,7 +394,186 @@ class GeneratorTrainer:
         finally:
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
+            self.tracker.flush()
             ckpt_lib.wait_pending_saves()
+
+    # -- periodic evaluation ------------------------------------------------
+
+    def _eval_due(self, i: int, interval: int) -> bool:
+        """The JAX trainer's gating: never at iteration 0; only where ``i``
+        is a multiple of ``min_evaluate_interval`` (in debug also of 10);
+        then in debug every kind at multiples of 100, else at multiples of
+        the kind's ``interval``."""
+        if i == 0:
+            return False
+        debug = self.tc.get("debug")
+        min_int = self.tc.get("min_evaluate_interval", 100)
+        if not (i % min_int == 0 or (debug and i % 10 == 0)):
+            return False
+        if debug and i % 100 == 0:
+            return True
+        return i % interval == 0
+
+    def evaluate(self, i: int) -> None:
+        """The evaluations of ``evaluation_config`` due at iteration ``i``;
+        their numbers go into the Tracker's next record."""
+        if (self.fid_cfg.get("enabled") and self.save_dir is not None
+                and self._eval_due(i, self.fid_cfg.get("fid_interval", 10000))):
+            fid = self.evaluate_fid()
+            if fid is not None and self.tracker.register_fid(i, fid):
+                self.save_nets(i, name="best_fid")
+        if self.separability_cfg.get("enabled") and self._eval_due(
+                i, self.separability_cfg.get("separability_interval", 30000)):
+            self.evaluate_separability(i)
+        ec = self.config.get("evaluation_config", {})
+        for kind, loss_name in (("orientation_hist", "orientation_loss"),
+                                ("expression_bar", "expression_loss")):
+            kc = ec.get(kind, {})
+            if (kc.get("enabled") and self.save_dir is not None
+                    and self._eval_due(i, kc.get(f"{kind}_interval", 30000))):
+                self.evaluate_attribute_hist(i, kind, loss_name, kc)
+
+    def _predictor(self, loss_name: str) -> nn.Module:
+        """The battery's net of ``loss_name``, or an eval-only one built once
+        from its block (pretrained or random weights, seed 23)."""
+        if loss_name in self.predictors:
+            return self.predictors[loss_name]
+        if loss_name not in self._eval_predictors:
+            self._eval_predictors[loss_name] = build_predictor(
+                loss_name, self.tc.get(loss_name) or {}, self.device, 23)
+        return self._eval_predictors[loss_name]
+
+    @torch.no_grad()
+    def evaluate_attribute_hist(self, i: int, kind: str, loss_name: str, kc: dict) -> None:
+        """``graphs/orientation_%06d.jpg`` (yaw, pitch and roll histograms;
+        ``orientation/yaw_std`` to the Tracker) or
+        ``graphs/expression_%06d.jpg`` (the class counts) over
+        ``num_of_samples`` images of the EMA G (100 in debug), z and noise
+        from one generator seeded ``1000 + i``."""
+        model = self._predictor(loss_name)
+        mod = predictor_module(loss_name)
+        dtype = next(model.parameters()).dtype
+        n = 100 if self.tc.get("debug") else kc.get("num_of_samples", 2000)
+        batch = self.tc["batch"]
+        gen = torch.Generator(device=self.device).manual_seed(1000 + i)
+        preds = []
+        for _ in range(0, n, batch):
+            z = torch.randn((batch, self.step_cfg.style_dim), generator=gen, device=self.device)
+            img, _ = self.state.g_ema([z], generator=gen)
+            with predictor_precision_ctx(self.tc.get("predictor_precision")):
+                preds.append(mod.predict(model, img.to(dtype)).float().cpu().numpy())
+        preds = np.concatenate(preds, axis=0)[:n]
+        gdir = Path(self.save_dir) / "graphs"
+        if kind == "orientation_hist":
+            plot_hist([preds[:, 0], preds[:, 1], preds[:, 2]], title=f"orientation @ iter {i}",
+                      labels=["yaw", "pitch", "roll"], xlabel="degrees",
+                      save_path=gdir / f"orientation_{i:06d}.jpg")
+            self.tracker.evaluation_dict["orientation/yaw_std"] = float(preds[:, 0].std())
+        else:
+            counts = np.bincount(preds.astype(int), minlength=len(EXPRESSION_CLASSES))
+            plot_bar(counts, list(EXPRESSION_CLASSES), title=f"expression classes @ iter {i}",
+                     save_path=gdir / f"expression_{i:06d}.jpg")
+
+    def evaluate_fid(self) -> float | None:
+        """FID of ``fid.num_of_samples`` EMA-G images (500 at most in
+        debug) against ``fid.inception_stat_path``, in chunks of
+        ``fid.batch_size`` (the train batch by default), z and noise from a
+        generator seeded 0. None, with a warning, when the statistics or
+        the Inception weights are missing; ``"__random__"`` weights run a
+        random net (seed 42), with a warning. The features stay in
+        ``self.fid_features``."""
+        stats_path = self.fid_cfg.get("inception_stat_path", "")
+        if not stats_path or not os.path.exists(stats_path):
+            _log.warning("fid enabled but stats pickle %r missing — skipping", stats_path)
+            return None
+        if self._fid_chunk is None:
+            from gan_control_torch.evaluation.inception import load_inception
+
+            weights = self.fid_cfg.get("inception_weights", "")
+            if weights == "__random__":
+                _log.warning("fid: inception_weights='__random__' — using a randomly initialized "
+                             "InceptionV3 (smoke-test mode, not a real FID)")
+            model = load_inception(weights, self.device, seed=42)
+            if model is None:
+                _log.warning("fid enabled but fid.inception_weights %r missing — skipping FID (a "
+                             "randomly initialized InceptionV3 would make the number meaningless; "
+                             "see WEIGHTS.md)", weights)
+                return None
+            self._fid_chunk = fid_lib.make_gen_feature_fn(
+                self.state.g_ema, model, int(self.fid_cfg.get("batch_size", self.tc["batch"])),
+                self.step_cfg.style_dim)
+        n = self.fid_cfg.get("num_of_samples", 50000)
+        if self.tc.get("debug"):
+            n = min(n, 500)
+        fid, self.fid_features = fid_lib.evaluate_fid(
+            self._fid_chunk, None, stats_path, n_samples=n, batch_size=self._fid_chunk.batch,
+            generator=torch.Generator(device=self.device).manual_seed(0), return_features=True)
+        return fid
+
+    def _eval_spec(self, loss_name: str) -> AttributeLossSpec | None:
+        """The battery's spec of ``loss_name``, or an eval-only one built
+        once (None, with a warning, when its block builds none)."""
+        for al in self.attr_losses:
+            if al.name == loss_name:
+                return al
+        if loss_name not in self._eval_specs:
+            built = build_eval_only(loss_name, self.tc, self.device)
+            if built is None:
+                _log.warning("separability loss %r has no buildable config block — skipped",
+                             loss_name)
+                return None
+            self._eval_specs[loss_name], self._eval_predictors[loss_name] = built
+            _log.info("built eval-only predictor for separability loss %r", loss_name)
+        return self._eval_specs[loss_name]
+
+    def _separability_images(self, z: torch.Tensor, gen: torch.Generator, noise=None) -> torch.Tensor:
+        """The EMA G's [-1, 1] images of ``z``; under ``same_for_same_id``
+        the noise planes are drawn here and shared from each even row to
+        the odd row after it."""
+        g_ema = self.state.g_ema
+        if noise is None and self.mc.get("g_noise_mode") == "same_for_same_id":
+            noise = g_ema.draw_noise(z.shape[0], generator=gen)
+            for plane in noise:
+                plane[1::2] = plane[0::2]
+        img, _ = g_ema([z], noise=noise, generator=gen)
+        return img
+
+    @torch.no_grad()
+    def evaluate_separability(self, i: int) -> None:
+        """Separability of each loss of ``separability.losses`` over
+        ``num_of_samples`` paired images (100 in debug), seed ``i``, to the
+        Tracker; the four closest-impostor pairs generated again (seed
+        ``i + 1``) as ``buckets/<loss>/%06d.jpg``."""
+        if self.spec is None:
+            _log.warning("separability needs a latent partition (vanilla model) — skipping")
+            return
+        cfg = self.separability_cfg
+        n = 100 if self.tc.get("debug") else cfg.get("num_of_samples", 2000)
+        for loss_name in cfg.get("losses", []):
+            al = self._eval_spec(loss_name)
+            if al is None:
+                continue
+            model = self._predictor(al.name)
+            dtype = next(model.parameters()).dtype
+            group = self.spec.group(al.group)
+            stats, latents = calc_separability(
+                self._separability_images,
+                lambda imgs, al=al, model=model: al.feature_fn(model, imgs.to(dtype)),
+                al.pair_dist_fn or pairwise_sq_l2, seed=i, num_of_samples=n,
+                same_chunk=(group.latent_start, group.latent_end),
+                style_dim=self.step_cfg.style_dim,
+                last_layer_only=cfg.get("last_layer_separability_only", True),
+                return_latents=True, device=self.device)
+            self.tracker.register_separability(i, al.name, stats)
+            if self.save_dir is not None:
+                # worst_pairs rows are (signature, query): signatures on the
+                # even latent rows, queries on the odd ones
+                rows = [r for sig, qry in stats[-1]["worst_pairs"][:4] for r in (2 * sig, 2 * qry + 1)]
+                imgs = self._separability_images(
+                    latents[rows].to(self.device),
+                    torch.Generator(device=self.device).manual_seed(i + 1))
+                self.tracker.save_bucket_images(
+                    i, al.name, torch.clamp(imgs.float() * 0.5 + 0.5, 0.0, 1.0))
 
     def save_images(self, i: int) -> None:
         """``images/samples/%06d.jpg``: the EMA generator on 16 fixed z;
@@ -371,11 +585,8 @@ class GeneratorTrainer:
         if self._sample_z_fixed is None:
             self._sample_z_fixed = torch.randn((16, dim), generator=torch.Generator().manual_seed(7)).to(dev)
 
-        @torch.no_grad()
         def sample(z: torch.Tensor, seed: int) -> torch.Tensor:
-            noise_gen = torch.Generator(device=dev).manual_seed(seed)
-            img, _ = g_ema([z], generator=noise_gen)
-            return torch.clamp(img.float() * 0.5 + 0.5, 0.0, 1.0)
+            return gen_grid_images(g_ema, z, generator=torch.Generator(device=dev).manual_seed(seed))
 
         imgdir = Path(self.save_dir) / "images"
         (imgdir / "samples").mkdir(parents=True, exist_ok=True)
@@ -383,8 +594,54 @@ class GeneratorTrainer:
         for g in (self.spec.groups if self.spec is not None else ()):
             lat = make_matrix_latents(torch.Generator().manual_seed(i), ids_in_row=4, pose_in_col=4,
                                       style_dim=dim, same_chunk=(g.latent_start, g.latent_end))
+            mat = sample(lat.to(dev), i)
             (imgdir / g.name).mkdir(parents=True, exist_ok=True)
-            save_image_grid(sample(lat.to(dev), i), imgdir / g.name / f"{i:06d}.jpg", nrow=4)
+            save_image_grid(mat, imgdir / g.name / f"{i:06d}.jpg", nrow=4)
+            self._save_annotated_matrices(i, g.name, mat, imgdir)
+
+    # which loss annotates which images/<kind>/ directory
+    _ANNOTATED_KINDS = (
+        ("orientation_loss", "orientation_matrix"),
+        ("expression_loss", "expression_matrix"),
+        ("age_loss", "age_matrix"),
+        ("hair_loss", "hair_matrix"),
+    )
+
+    @torch.no_grad()
+    def _save_annotated_matrices(self, i: int, group_name: str, mat01: torch.Tensor,
+                                 imgdir: Path) -> None:
+        """The battery's predictions drawn on the cells of ``group_name``'s
+        matrix (pose axes; age, expression and hair as text) for each
+        loss trained on that group, as ``images/<kind>_matrix/%06d.jpg``;
+        on the embedding loss's group, with orientation and expression in
+        the battery, the axes and the expression class together as
+        ``images/attribute_matrix/%06d.jpg``."""
+        enabled = {al.name: al for al in self.attr_losses}
+        cache: dict[str, np.ndarray] = {}
+
+        def preds_for(loss_name: str) -> np.ndarray:
+            if loss_name not in cache:
+                model = self.predictors[loss_name]
+                imgs = (mat01 * 2.0 - 1.0).to(next(model.parameters()).dtype)
+                with predictor_precision_ctx(self.tc.get("predictor_precision")):
+                    out = predictor_module(loss_name).predict(model, imgs)
+                cache[loss_name] = out.float().cpu().numpy()
+            return cache[loss_name]
+
+        for loss_name, kind in self._ANNOTATED_KINDS:
+            al = enabled.get(loss_name)
+            if al is None or al.group != group_name:
+                continue
+            annotated = annotate_attribute_images(loss_name, mat01, preds_for(loss_name))
+            (imgdir / kind).mkdir(parents=True, exist_ok=True)
+            save_image_grid(annotated, imgdir / kind / f"{i:06d}.jpg", nrow=4)
+        emb = enabled.get("embedding_loss")
+        if (emb is not None and emb.group == group_name and "orientation_loss" in enabled
+                and "expression_loss" in enabled):
+            annotated = annotate_attribute_images("attribute", mat01, preds_for("orientation_loss"),
+                                                  extra_preds=preds_for("expression_loss"))
+            (imgdir / "attribute_matrix").mkdir(parents=True, exist_ok=True)
+            save_image_grid(annotated, imgdir / "attribute_matrix" / f"{i:06d}.jpg", nrow=4)
 
     def save_nets(self, step: int, name: str | None = None, block: bool = False):
         """Write the whole train state as ``checkpoint/%06d.ckpt`` (or

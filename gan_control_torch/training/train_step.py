@@ -83,6 +83,8 @@ class AttributeLossSpec:
     feature_fn: (predictor module, NHWC images in [-1, 1]) -> list of
       per-layer features, the criterion's embedding last.
     dist_fn: last-layer features -> [N, N] distance matrix.
+    pair_dist_fn: (signatures, queries) -> [N, M], the same criterion
+      between two sets (separability).
     share_key: specs with one key (the recon-3d sub-losses) run
       ``shared_forward_fn`` once per step and slice it with ``extract_fn``;
       ``feature_fn`` stays the standalone path.
@@ -93,6 +95,7 @@ class AttributeLossSpec:
     cfg: ContrastiveConfig
     feature_fn: Callable[[nn.Module, torch.Tensor], Sequence[torch.Tensor]]
     dist_fn: Callable[[torch.Tensor], torch.Tensor]
+    pair_dist_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None
     share_key: str | None = None
     shared_forward_fn: Callable[[nn.Module, torch.Tensor], Any] | None = None
     extract_fn: Callable[[Any], Sequence[torch.Tensor]] | None = None

@@ -117,6 +117,27 @@ def predictor_state_dict_from_flax(loss_name: str, tree: Mapping[str, Any]) -> d
     return predictor_module(loss_name).state_dict_from_flax(tree)
 
 
+def inception_state_dict_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX ``InceptionV3Features`` parameter tree (``init_params`` or
+    ``convert_torch_weights`` output, as numpy) -> the port's
+    ``evaluation/inception.py`` ``state_dict``: each ``BasicConv`` node
+    ({"conv", "bn"}) to ``<path>.conv.weight`` (OIHW) and ``<path>.bn.*``."""
+    from gan_control_torch.losses.predictors.common import bn_from_flax, conv_from_flax, flax_params
+
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping[str, Any], prefix: str) -> None:
+        if set(node) == {"conv", "bn"}:
+            out.update(conv_from_flax(node["conv"], f"{prefix}.conv"))
+            out.update(bn_from_flax(node["bn"], f"{prefix}.bn"))
+            return
+        for key, val in node.items():
+            walk(val, f"{prefix}.{key}" if prefix else key)
+
+    walk(flax_params(tree), "")
+    return out
+
+
 def save_flax_checkpoint(ckpt_dir: str | Path, entry: str, module: nn.Module,
                          step: int = 0) -> Path:
     """Write ``{entry: flax tree of module}`` as ``ckpt_dir/%06d.ckpt``, the

@@ -296,6 +296,12 @@ assert phase2 <= set(mods), sorted(phase2 - set(mods))
 serving = {f"gan_control_torch.inference.{m}" for m in (
     "serving", "exported", "graphs", "row_noise", "interpolation")}
 assert serving <= set(mods), sorted(serving - set(mods))
+evaluation = {f"gan_control_torch.evaluation.{m}" for m in (
+    "tracker", "inception", "fid", "separability", "attribute_evals", "disentanglement")} | {
+    "gan_control_torch.utils.image_utils", "gan_control_torch.utils.plotting",
+    "gan_control_torch.calc_inception", "gan_control_torch.calibrate_thresholds"}
+assert evaluation <= set(mods), sorted(evaluation - set(mods))
+assert "matplotlib" not in sys.modules
 assert len(mods) >= 45, mods
 import torch
 from gan_control_torch.inference.inference import Inference
