@@ -50,8 +50,8 @@ seconds:
     ``data_config.path`` at the folder, iteration 0 saving the sample images
     and the nets; SIGTERM once iteration 3 is logged (exit 0, a checkpoint
     at the next iteration, the sample grid and the seven group matrices);
-    a second run resumed from that checkpoint (``ckpt_config``) to
-    iteration 8; the checkpoint loaded into a fresh ``GeneratorTrainer``
+    a second run resumed from that checkpoint (``ckpt_config``) for two
+    more iterations; the checkpoint loaded into a fresh ``GeneratorTrainer``
     and every parameter, EMA tensor and Adam moment held equal to the file;
     the decode route, the loader's ms per batch alone, and the plain
     iterations' median and device-busy share with the image loader against
@@ -135,7 +135,9 @@ seconds:
     config's 2000; its metrics record, ``best_fid.ckpt``, bucket image,
     plots and annotated matrices, and no "not ported" warning; then a fresh
     ``GeneratorTrainer`` loads ``best_fid.ckpt`` and runs each evaluation
-    in-process with the counters set to 0 just before and read just after,
+    in-process (separability and the histograms on 500 samples, cut from
+    the config's 2000; FID on the command line's 2304) with the
+    counters set to 0 just before and read just after,
     against the launches derived from the modules (also of one FID chunk,
     separability batch and histogram batch), with its seconds and the peak
     memory; the logged FID against its recomputation from the same
@@ -144,10 +146,38 @@ seconds:
     Inception card against CPU (batch 2, 512 px, f32, TF32 off); then every
     (kernel, shape, dtype) that the evaluation launched, forward and
     backward against the plain version, with its times and bound;
-17. one JSON line of per-kernel numbers over ``train(5)``, the phase-2
-    launches of phases 10-12, the serving launches of phase 15 and the
-    evaluation launches of phase 16 (launches, times and bounds summed over
-    the four), then the card's line and the result line.
+18. AFHQ and MetFaces (ADA, the three new nets, transfer learning), at
+    full width (512 px, channel multiplier 2, batch 16), random init:
+    (a) 64 seeded 512-px PNGs in AFHQ's ``train/dog`` layout (three
+    unreadable files in ``train/cat``, which the loader must not read) and
+    ``python -m gan_control_torch.train_generator --iters 3`` on a copy of
+    configs/afhq.json: the battery (Hopenet, DogFaceNet, ResNet-18, bf16)
+    and adaptive ADA; every iteration's losses and three attribute losses
+    finite, ``ada_p`` logged and equal in the checkpoint, the sample grid and
+    the three group matrices; (b) beside it, the same on a copy of
+    configs/metfaces.json (data set ``met-faces``, phase 16's PNGs) with
+    ``augment.p`` 0.5 and ``transfer_learning_model`` at phase 7b's FFHQ run:
+    before, in-process, every synthesis tensor of G and its EMA equal to
+    the run's ``g_ema`` and each mapping tensor the source's where name and
+    shape match, else its own init; after, the five-net battery's losses
+    finite, ``ada_p`` 0.5 in the checkpoint; (c) one ``GeneratorTrainer``
+    per config with the counters set to 0 around ``train(3)``, each step
+    kind's launches against ``expected_step_counts`` with 3 and 6 groups,
+    ms per step kind, peak memory, each net's loss forward and
+    image-gradient backward, plain iterations with ADA against the same
+    trainer with it off (alternated), ``augment`` alone at [16, 512, 512,
+    3] bf16 p 0.5 with its device time by kernel; (d) card against CPU: the
+    three new nets alone (as phase 9), ``apply_affine`` + ``apply_color``
+    at 512 px with explicit matrices, a size-32 ``d_step`` and ``g_step``
+    with a fixed-matrix augment; (e) every (kernel, shape, dtype) that (c)
+    launched, forward and backward against the plain version, with its
+    times and bound. The two runs' logs go to
+    ``build/gan_control_torch/afhq_metfaces/``;
+19. the script's total seconds; one JSON line of per-kernel numbers over
+    ``train(5)``, the phase-2 launches of phases 10-12, the serving
+    launches of phase 15, the evaluation launches of phase 16 and the
+    AFHQ and MetFaces launches of phase 18 (launches, times and bounds
+    summed over the five), then the card's line and the result line.
 
 Times, per launch at each shape and summed over a path's launches:
 "host-rate" is the mean over back-to-back eager calls between two CUDA
@@ -714,6 +744,51 @@ def install_launch_recorder(seen: Counter):
     return remove
 
 
+def count_by_kind(gt, trainer=None):
+    """Wraps each step function of the trainer module ``gt`` (and, with
+    ``trainer``, its ``save_images``) so that each call appends the launch
+    counters' change over it to its kind's list. Returns (lists by kind, a
+    function that removes the wrappers)."""
+    from gan_control_torch.ops import kernels
+
+    kinds = (*gt.STEP_KINDS, "save_images") if trainer is not None else gt.STEP_KINDS
+    by_kind: dict[str, list[dict]] = {k: [] for k in kinds}
+    originals = {k: getattr(gt, k) for k in gt.STEP_KINDS}
+
+    def counted(kind, fn):
+        def run(*a, **kw):
+            before = kernels.launch_counts()
+            out = fn(*a, **kw)
+            after = kernels.launch_counts()
+            by_kind[kind].append({n: after[n] - before[n] for n in after})
+            return out
+        return run
+
+    for k in gt.STEP_KINDS:
+        setattr(gt, k, counted(k, originals[k]))
+    if trainer is not None:
+        trainer.save_images = counted("save_images", trainer.save_images)
+
+    def restore():
+        for k in gt.STEP_KINDS:
+            setattr(gt, k, originals[k])
+        if trainer is not None:
+            del trainer.save_images
+
+    return by_kind, restore
+
+
+def worst_grad_err(want: dict, got: dict, floor: float = 1e-12) -> tuple[float, str]:
+    """The largest error of a gradient tensor of ``got`` over the largest
+    entry of its ``want`` tensor, and that tensor's name."""
+    worst, worst_name = 0.0, ""
+    for n in want:
+        r = float((got[n] - want[n]).abs().max()) / max(float(want[n].abs().max()), floor)
+        if r > worst:
+            worst, worst_name = r, n
+    return worst, worst_name
+
+
 def event_ms(fn, reps: int = BATTERY_REPS) -> list[float]:
     """Milliseconds between two CUDA events around each of ``reps`` calls
     of ``fn`` (after one warm call); each call returns its own list of
@@ -810,27 +885,11 @@ def train_phase(build_root: Path) -> tuple[Counter, dict, dict]:
         if not all(math.isfinite(v) for v in m.values()):
             fail(f"dry run losses not finite: {m}")
 
-    # per step kind, and per sample-image save: the counters' change over
-    # each call
-    by_kind: dict[str, list[dict]] = {k: [] for k in (*gt.STEP_KINDS, "save_images")}
-    originals = {k: getattr(gt, k) for k in gt.STEP_KINDS}
-
-    def counted(kind, fn):
-        def run(*a, **kw):
-            before = kernels.launch_counts()
-            out = fn(*a, **kw)
-            after = kernels.launch_counts()
-            by_kind[kind].append({n: after[n] - before[n] for n in after})
-            return out
-        return run
-
     before_params = {f"G.{k}": v.detach().clone() for k, v in st.generator.state_dict().items()}
     before_params.update({f"D.{k}": v.detach().clone() for k, v in st.discriminator.state_dict().items()})
     seen: Counter = Counter()
     with Phase("train main path"):
-        for k in gt.STEP_KINDS:
-            setattr(gt, k, counted(k, originals[k]))
-        trainer.save_images = counted("save_images", trainer.save_images)
+        by_kind, restore = count_by_kind(gt, trainer)
         remove = install_launch_recorder(seen)
         trainer.profile_steps = True
         torch.cuda.reset_peak_memory_stats()
@@ -843,9 +902,7 @@ def train_phase(build_root: Path) -> tuple[Counter, dict, dict]:
             copies = kernels.contiguous_grad.copies
         finally:
             remove()
-            for k in gt.STEP_KINDS:
-                setattr(gt, k, originals[k])
-            del trainer.save_images
+            restore()
         log(f"train main path: launches over train({TRAIN_ITERS}) {counts}; gradient layout copies {copies}")
         for kind in gt.STEP_KINDS:
             for got in by_kind[kind]:
@@ -947,7 +1004,7 @@ def plain_iteration_ms(trainer) -> list[float]:
 FOLDER_IMAGES = 64
 FOLDER_PX = 1024
 PREEMPT_AFTER = 3  # SIGTERM once this iteration's metrics are logged
-RESUME_TO = 8
+RESUME_ITERS = 2  # iterations of the resumed run past its checkpoint
 
 
 def write_image_folder(root: Path, n: int, px: int, seed: int = 0) -> Path:
@@ -1049,12 +1106,13 @@ def log_time(line: str) -> float:
     return int(h) * 3600 + int(m) * 60 + int(sec) + int(ms) / 1e3
 
 
-def image_folder_phase(build_root: Path, synthetic: dict) -> None:
+def image_folder_phase(build_root: Path, synthetic: dict) -> Path:
     """Phase 7b: FFHQ-512 training from an image folder through the port's
     command line, preempted by SIGTERM, resumed from its checkpoint, and
     the checkpoint held against a fresh trainer's state; then the loader
     alone and plain iterations with the image loader against phase 7's
-    synthetic ones (``synthetic``: its plain-iteration ms and busy share)."""
+    synthetic ones (``synthetic``: its plain-iteration ms and busy share).
+    Returns the preempted run's directory (phase 18's transfer source)."""
     from gan_control_torch.data import native_loader
     from gan_control_torch.data.datasets import get_data_loader
     from gan_control_torch.losses.registry import build_attr_losses
@@ -1102,16 +1160,17 @@ def image_folder_phase(build_root: Path, synthetic: dict) -> None:
     with Phase("folder train, resumed"):
         config["ckpt_config"] = {"enabled": True, "ckpt": str(ckpt)}
         cfg_path.write_text(json.dumps(config))
-        run = CliRun(cfg_path, RESUME_TO, build_root / "train_generator_resumed.log")
+        resume_to = at + RESUME_ITERS
+        run = CliRun(cfg_path, resume_to, build_root / "train_generator_resumed.log")
         start = int(run.wait_for(r"resumed from \S+: start_iter (\d+)", 300)[1])
-        run.wait_for(rf"iter {RESUME_TO - 1}: ", 600)
+        run.wait_for(rf"iter {resume_to - 1}: ", 600)
         rc = run.finish(300)
         if rc != 0 or start != at:
             fail(f"the resumed train_generator: exit {rc}, start_iter {start} (checkpoint step {at})")
-        finals = sorted((build_root / "folder_results").glob(f"*/checkpoint/{RESUME_TO:06d}.ckpt"))
+        finals = sorted((build_root / "folder_results").glob(f"*/checkpoint/{resume_to:06d}.ckpt"))
         if not finals:
-            fail(f"the resumed run left no checkpoint at {RESUME_TO}")
-        log(f"folder train: resumed at start_iter {start}, trained to {RESUME_TO}, exit 0")
+            fail(f"the resumed run left no checkpoint at {resume_to}")
+        log(f"folder train: resumed at start_iter {start}, trained to {resume_to}, exit 0")
 
     with Phase("folder checkpoint against a fresh trainer"):
         config.pop("ckpt_config")
@@ -1184,6 +1243,7 @@ def image_folder_phase(build_root: Path, synthetic: dict) -> None:
         trainer.close()
     del trainer
     torch.cuda.empty_cache()
+    return save_dir
 
 
 def kernel_case(name: str, shape, dtype, args, gen):
@@ -1552,11 +1612,7 @@ def train_card_vs_cpu() -> None:
         if mc.keys() != mg.keys() or gc.keys() != gg.keys():
             fail(f"{kind}: card and CPU return other metrics or gradients")
         loss_err = max(abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])) for k in mc)
-        worst, worst_name = 0.0, ""
-        for n in gc:
-            r = float((gg[n] - gc[n]).abs().max()) / max(float(gc[n].abs().max()), 1e-12)
-            if r > worst:
-                worst, worst_name = r, n
+        worst, worst_name = worst_grad_err(gc, gg)
         tol = BATTERY_PARITY_RTOL if "battery" in kind else TRAIN_PARITY_RTOL
         log(f"train card vs cpu: {kind} losses {mc} (card {mg}), worst loss rel err {loss_err:.3g} "
             f"(tol {TRAIN_PARITY_RTOL}); {len(gc)} gradients, worst rel err {worst:.3g} ({worst_name}), "
@@ -1969,11 +2025,7 @@ def controller_card_vs_cpu(root: Path) -> None:
             del tr
         (mc, gc), (mg, gg) = out["cpu"], out["cuda"]
         loss_err = max(abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])) for k in mc)
-        worst, worst_name = 0.0, ""
-        for n in gc:
-            r = float((gg[n] - gc[n]).abs().max()) / max(float(gc[n].abs().max()), 1e-30)
-            if r > worst:
-                worst, worst_name = r, n
+        worst, worst_name = worst_grad_err(gc, gg, floor=1e-30)
         log(f"controller card vs cpu: {'+'.join(losses)} batch {PARITY_CTRL_BATCH} size 32 f32: losses {mc} "
             f"(card {mg}), worst loss rel err {loss_err:.3g} (tol {TRAIN_PARITY_RTOL}); head gradients worst "
             f"rel err {worst:.3g} ({worst_name}), tol {tol}")
@@ -2218,6 +2270,8 @@ EVAL_ITERS = 3
 FID_CHUNKS = (16, 64)
 SWEEP_CHUNKS = 12  # timed chunks per chunk size
 FID_RECOMPUTE_RTOL = 1e-9
+# in-process separability and histogram samples (the command line keeps the config's 2000)
+EVAL_INPROCESS_SAMPLES = 500
 
 
 def eval_config(folder: Path, stats_path: Path, results_dir: Path) -> dict:
@@ -2375,6 +2429,8 @@ def evaluation_phase(build_root: Path) -> tuple[Counter, dict]:
         n_map, n_conv, n_up = g_counts(tr.state.g_ema)
         per_forward = row(n_map + n_conv, 0, n_up, 0)
         ec = cfg2["evaluation_config"]
+        for kind in ("separability", "orientation_hist", "expression_bar"):
+            ec[kind]["num_of_samples"] = EVAL_INPROCESS_SAMPLES  # the trainer's own dicts
         batch = cfg2["training_config"]["batch"]
         forwards = {"fid": -(-FID_SAMPLES // batch),
                     "separability": -(-ec["separability"]["num_of_samples"] // 20) + 1,
@@ -2443,7 +2499,418 @@ def evaluation_phase(build_root: Path) -> tuple[Counter, dict]:
     return seen, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: AFHQ and MetFaces training (ADA, the three new nets, transfer)
+# ---------------------------------------------------------------------------
+
+AFHQ_IMAGES = 64
+AFHQ_CATS = 3  # not images: the AFHQ loader reads train/dog only
+NEW_ITERS = 3  # each command-line run and each in-process train()
+FIXED_P = 0.5  # MetFaces' augment.p: the augmentation moves pixels from the first step
+NEW_NETS = {"dog_id_loss": "afhq", "classification_loss": "afhq", "style_loss": "metfaces"}
+NEW_GROUPS = {"afhq": 3, "metfaces": 6}
+NEW_LOSSES = {"afhq": ("orientation_loss", "dog_id_loss", "classification_loss"),
+              "metfaces": ("embedding_loss", "orientation_loss", "age_loss", "expression_loss",
+                           "style_loss")}
+ADA_REPS = 2  # alternations of plain iterations with ADA and without
+# ADA card vs CPU (f32, TF32 off), against the output's largest entry: the
+# sampling grid's coordinates differ by an ulp or two between the devices'
+# f32 orders (~2e-4 px of the 1549-px upsampled frame at 512 px), and a
+# point on the pad's cover boundary may take the direct or the folded
+# sample (they differ by the SYM6 filter's asymmetry)
+AUGMENT_RTOL = 1e-3
+
+
+def smooth_images(n: int, seed: int, px: int = 512) -> torch.Tensor:
+    """``n`` NHWC f32 images on the CPU: seeded 32-px noise resized
+    bilinearly to ``px``, as smooth as a generator's."""
+    small = np.random.default_rng(seed).standard_normal((n, 3, 32, 32)).astype(np.float32) * 0.5
+    return F.interpolate(torch.from_numpy(small), size=(px, px), mode="bilinear",
+                         align_corners=False).permute(0, 2, 3, 1).contiguous()
+
+
+def fixed_augment(batch: int, seed: int, fold: bool = True):
+    """An ``augment_fn`` of explicit colour matrices and geometric
+    transforms, the same on any device. With ``fold``: rotations,
+    anisotropic scales and translations as ``sample_affine`` draws them,
+    every fourth row translated about one image size away, into the reflect
+    fold. Without: mild ones (a few degrees, a few percent, a few pixels),
+    whose output never reads a sample beyond the materialised pad."""
+    rng = np.random.default_rng(seed)
+    g = []
+    for i in range(batch):
+        mild = 1.0 if fold else 0.1
+        th = rng.uniform(-math.pi, math.pi) * (1.0 if fold else 0.03)
+        s, s2 = np.exp(rng.normal(size=2) * 0.2 * math.log(2) * mild)
+        t = rng.normal(size=2) * 0.125 * mild + (np.array([0.9, -0.7]) if fold and i % 4 == 3 else 0.0)
+        m = np.array([[math.cos(th), -math.sin(th), t[0]], [math.sin(th), math.cos(th), t[1]], [0, 0, 1]])
+        g.append(m @ np.diag([s * s2, s / s2, 1.0]))
+    g = torch.tensor(np.array(g), dtype=torch.float32)
+    c = torch.eye(4).repeat(batch, 1, 1)
+    c[:, :3, :3] += torch.from_numpy(rng.standard_normal((batch, 3, 3)).astype(np.float32)) * 0.2
+    c[:, :3, 3] = torch.from_numpy(rng.standard_normal((batch, 3)).astype(np.float32)) * 0.1
+
+    def augment_fn(img, p, generator):
+        from gan_control_torch.training import ada
+
+        return ada.apply_color(ada.apply_affine(img, g.to(img.device)), c.to(img.device))
+
+    return augment_fn
+
+
+def augment_card_vs_cpu(seed: int = 0) -> dict:
+    """``apply_affine`` then ``apply_color`` on two 512-px images with
+    explicit matrices, f32 with TF32 off, card against CPU: the output and
+    the image gradient of a seeded projection to AUGMENT_RTOL of their
+    largest entries."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fn = fixed_augment(2, seed)
+    images = smooth_images(2, seed)
+    proj = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(images.shape).astype(np.float32))
+
+    def run(dev):
+        x = images.to(dev).requires_grad_(True)
+        out = fn(x, None, None)
+        (grad,) = torch.autograd.grad((out * proj.to(dev)).sum(), x)
+        return out.detach().cpu(), grad.cpu()
+
+    (want, want_g), (got, got_g) = run("cpu"), run("cuda")
+    errs = {}
+    for label, g, w in (("output", got, want), ("image gradient", got_g, want_g)):
+        err, scale = max_err(g, w)
+        errs[label] = err / scale
+        if not bool(torch.isfinite(g).all()) or err > AUGMENT_RTOL * scale:
+            fail(f"ADA card vs cpu: the {label} disagrees: {err:.3g} > {AUGMENT_RTOL} x {scale:.3g}")
+    log(f"ADA card vs cpu: apply_affine + apply_color, batch 2, 512 px, f32 TF32 off, explicit "
+        f"matrices (one into the reflect fold): output error / max {errs['output']:.2e}, image gradient "
+        f"{errs['image gradient']:.2e} (tol {AUGMENT_RTOL})")
+    return errs
+
+
+def new_nets_card_vs_cpu() -> None:
+    """DogFaceNet, ResNet-18 and the VGG-16 style net alone, card against
+    CPU, as phase 9 holds the FFHQ nets: batch 2 of 512-px images, f32,
+    TF32 off, batch-norm statistics (the style net: its conv outputs)
+    calibrated from the images."""
+    from gan_control_torch.losses.registry import build_attr_losses, calibrate_battery
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images = smooth_images(4, 3)
+    for i, (name, cfg_name) in enumerate(NEW_NETS.items()):
+        block = json.loads((CONFIGS / f"{cfg_name}.json").read_text())["training_config"][name]
+        _, preds = build_attr_losses({name: dict(block, enabled=True)}, device="cpu", seed=5)
+        calibrate_battery(preds, images)
+        predictor_card_vs_cpu(name, preds[name], images[:PREDICTOR_BATCH], 400 + i)
+
+
+def ada_steps_card_vs_cpu() -> None:
+    """A size-32 FFHQ model's ``d_step`` (ADA adapting ``ada_p`` from 0.3)
+    and ``g_step``, each with a fixed-matrix ``augment_fn``, card against
+    CPU from the same parameters and explicit inputs, f32 with TF32 off:
+    losses and gradients to TRAIN_PARITY_RTOL, ``ada_p`` equal. The
+    matrices are mild (``fixed_augment(fold=False)``): at the pad's cover
+    boundary the reference's pipeline switches between the direct and the
+    folded sample, which differ by the SYM6 filter's asymmetry, and among
+    the ~4e5 upsampled samples of a batch of 16 at 32 px one lands within
+    an ulp of it about as often as not, where the card and the CPU may
+    take other branches (an error of 1.14e-3 in a D gradient, measured;
+    ROADMAP Queue 3). ``augment_card_vs_cpu`` holds the fold at 512 px."""
+    from gan_control_torch.models.factory import build_discriminator, build_generator, build_group_spec
+    from gan_control_torch.training import train_step as ts
+    from gan_control_torch.training.state import init_gan_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = json.loads((CONFIGS / "ffhq.json").read_text())
+    config["model_config"].update(size=32, max_channels=64, mixed_precision=False)
+    tc = config["training_config"]
+    spec = build_group_spec(config)
+    b = tc["batch"]
+    cfg = ts.TrainStepConfig(batch=b, mini_batch=tc["mini_batch"], ada_enabled=True)
+    augment_fn = fixed_augment(b, 9, fold=False)
+    rng = np.random.default_rng(6)
+    z = torch.from_numpy(rng.standard_normal((b, 512)).astype(np.float32))
+    real = smooth_images(b, 7, px=32)
+    g0 = build_generator(config, spec, device="cpu", seed=0)
+    d0 = build_discriminator(config, device="cpu", seed=1)
+    noise = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in g0.noise_shapes(b)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        for kind in ("d_step", "g_step"):
+            st = init_gan_state(copy.deepcopy(g0).to(dev), copy.deepcopy(d0).to(dev), tc)
+            st.ada_p = torch.tensor(0.3, device=dev)
+            kw = dict(noise=[n.to(dev) for n in noise], augment_fn=augment_fn)
+            if kind == "d_step":
+                m = ts.d_step(st, cfg, spec, real.to(dev), (z.to(dev),), **kw)
+            else:
+                m = ts.g_step(st, cfg, spec, (z.to(dev),), **kw)
+            grads = {f"{p}.{n}": t.grad.detach().cpu() for p, mod in (("G", st.generator),
+                                                                     ("D", st.discriminator))
+                     for n, t in mod.named_parameters() if t.grad is not None}
+            out[dev, kind] = ({k: float(v) for k, v in m.items()}, grads, float(st.ada_p))
+    for kind in ("d_step", "g_step"):
+        (mc, gc, pc), (mg, gg, pg) = out["cpu", kind], out["cuda", kind]
+        loss_err = max(abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])) for k in mc)
+        worst, worst_name = worst_grad_err(gc, gg)
+        log(f"ADA steps card vs cpu: {kind} with a fixed-matrix augment: losses {mc}, worst loss rel err "
+            f"{loss_err:.3g}; {len(gc)} gradients, worst rel err {worst:.3g} ({worst_name}), tol "
+            f"{TRAIN_PARITY_RTOL}; ada_p cpu {pc} card {pg}")
+        if loss_err > TRAIN_PARITY_RTOL or worst > TRAIN_PARITY_RTOL or pc != pg or gc.keys() != gg.keys():
+            fail(f"ADA {kind}: card and CPU disagree")
+    if out["cpu", "d_step"][2] == float(np.float32(0.3)):
+        fail("ADA d_step: ada_p did not adapt")
+
+
+def augment_timing() -> tuple[float, float]:
+    """``augment`` alone at the path's shape, [16, 512, 512, 3] bf16, p 0.5:
+    the forward and the image-gradient backward (CUDA events, median of a
+    few), then the device time by kernel of one forward and backward."""
+    from gan_control_torch.training import ada
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x0 = (torch.randn((16, 512, 512, 3), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    proj = torch.randn(x0.shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def run():
+        x = x0.detach().clone().requires_grad_(True)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        out = ada.augment(x, 0.5, gen)
+        ev[1].record()
+        torch.autograd.grad((out * proj).float().sum(), x)
+        ev[2].record()
+        return ev
+
+    f, b = event_ms(run)
+    log(f"ADA augment alone: [16, 512, 512, 3] bf16, p 0.5: forward {f:.2f} ms, image-gradient backward "
+        f"{b:.2f} ms (CUDA events, median of {BATTERY_REPS})")
+    profile_phase("ADA augment forward and backward", run, f + b)
+    return f, b
+
+
+def transfer_check(config: dict, ffhq_run: Path) -> None:
+    """MetFaces with ``transfer_learning_model`` at phase 7b's FFHQ run,
+    before any step: every synthesis tensor of G and its EMA equal to the
+    run's ``g_ema``; each mapping tensor the source's where its name and
+    shape match, else the MetFaces G's own init; ``ada_p`` at the fixed p."""
+    from gan_control_torch.data.datasets import synthetic_data_loader
+    from gan_control_torch.inference.inference import Inference
+    from gan_control_torch.models.factory import build_generator, build_group_spec
+    from gan_control_torch.trainers.generator_trainer import GeneratorTrainer
+
+    source = Inference.retrieve_model(ffhq_run, torch.device("cpu"), None)[0].state_dict()
+    # the trainer's G before the transfer: the factory's init at the trainer's seed
+    fresh = build_generator(config, build_group_spec(config), device="cuda",
+                            seed=config["training_config"].get("seed", 0)).state_dict()
+    tr = GeneratorTrainer(config=config, init_dirs=False, device="cuda", data_loader=synthetic_data_loader(16, 512))
+    g, ema = tr.state.generator.state_dict(), tr.state.g_ema.state_dict()
+    synth, loaded, kept = 0, 0, []
+    for name, v in g.items():
+        src = source.get(name)
+        if src is not None and src.shape == v.shape:
+            if not torch.equal(v.cpu(), src):
+                fail(f"transfer: {name} differs from the source")
+            synth += not name.startswith("style.")
+            loaded += name.startswith("style.")
+        elif not name.startswith("style.") or not torch.equal(v, fresh[name]):
+            fail(f"transfer: {name} neither loaded nor kept at its init")
+        else:
+            kept.append(name)
+        if not torch.equal(ema[name], v):
+            fail(f"transfer: the EMA's {name} is not G's")
+    n_synth = sum(not k.startswith("style.") for k in g)
+    if synth != n_synth or not kept or float(tr.state.ada_p) != FIXED_P:
+        fail(f"transfer: {synth} of {n_synth} synthesis tensors loaded, {len(kept)} kept, "
+             f"ada_p {float(tr.state.ada_p)}")
+    groups = sorted({k.split(".")[1] for k in kept})
+    log(f"transfer: MetFaces G and EMA from {ffhq_run.name}: all {n_synth} synthesis tensors equal the "
+        f"FFHQ run's g_ema, {loaded} mapping tensors loaded (name and shape match), {len(kept)} kept their "
+        f"init (groups {groups}); ada_p {float(tr.state.ada_p)} before the first step")
+    del tr, fresh
+    torch.cuda.empty_cache()
+
+
+def check_new_run(name: str, run: CliRun, config: dict) -> Path:
+    """The metrics, checkpoint and images of one command-line run of
+    phase 18 (a) or (b)."""
+    text = "".join(run.lines)
+    if "not ported" in text:
+        fail(f"{name} train_generator logged 'not ported'")
+    save_dir = Path(re.search(r"save dir: (\S+)", text)[1])
+    recs = [json.loads(ln) for ln in (save_dir / "metrics.jsonl").read_text().splitlines()]
+    if [r["iter"] for r in recs] != list(range(NEW_ITERS)):
+        fail(f"{name}: metrics of iterations {[r['iter'] for r in recs]}")
+    attr = [f"g_{n}" for n in NEW_LOSSES[name]]
+    adaptive = config["training_config"]["augment"]["p"] == 0
+    for r in recs:
+        nums = {k: v for k, v in r.items() if isinstance(v, (int, float))}
+        if not all(math.isfinite(v) for v in nums.values()) or not all(a in r for a in attr):
+            fail(f"{name}: iteration {r['iter']} lacks a finite {attr}: {r}")
+        if ("ada_p" in r) != adaptive:
+            fail(f"{name}: ada_p logged {'ada_p' in r}, adaptive {adaptive}")
+        log(f"{name} attribute losses, iteration {r['iter']}: "
+            + ", ".join(f"{a} {r[a]:.6g}" for a in attr)
+            + (f"; ada_p {r['ada_p']:.9g}" if adaptive else "") + f"; g_loss {r['g_loss']:.6g}")
+    from gan_control_torch.utils import checkpoint as ckpt_lib
+
+    ckpt_p = float(ckpt_lib.load_state_dict(save_dir / "checkpoint" / f"{NEW_ITERS:06d}.ckpt")["ada_p"])
+    want_p = float(np.float32(recs[-1]["ada_p"])) if adaptive else FIXED_P
+    if ckpt_p != want_p:
+        fail(f"{name}: the checkpoint's ada_p {ckpt_p}, expected {want_p}")
+    groups = list(config["training_config"]["sub_groups_dict"])
+    files = [f"images/{g}/000000.jpg" for g in ("samples", *groups)] + ["images/orientation_matrix/000000.jpg"]
+    missing = [f for f in files if not (save_dir / f).is_file()]
+    if missing or len(groups) != NEW_GROUPS[name]:
+        fail(f"{name}: no {missing} (groups {groups})")
+    log(f"{name} train_generator: {NEW_ITERS} iterations, {len(attr)} attribute losses finite in each, "
+        f"checkpoint ada_p {ckpt_p!r}; the sample grid and {len(groups)} group matrices written")
+    return save_dir
+
+
+def new_trainer_in_process(name: str, config: dict, seen: Counter, counts: dict) -> None:
+    """Phase 18 (c) for one config: ``train(NEW_ITERS)`` with the launches
+    of each step kind held to ``expected_step_counts`` (the battery and
+    ADA launch none of the port's kernels), step and iteration times, peak
+    memory, the battery's times, and plain iterations with ADA against the
+    same trainer with it off."""
+    from gan_control_torch.data.datasets import synthetic_data_loader
+    from gan_control_torch.losses.registry import build_attr_losses
+    from gan_control_torch.ops import kernels
+    from gan_control_torch.trainers import generator_trainer as gt
+    from gan_control_torch.training import ada
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    specs, predictors = build_attr_losses(config["training_config"], device="cuda")
+    tr = gt.GeneratorTrainer(config=config, init_dirs=False, device="cuda", attr_losses=specs,
+                             predictors=predictors, data_loader=synthetic_data_loader(16, 512, seed=0))
+    st = tr.state
+    if [s.name for s in specs] != list(NEW_LOSSES[name]) or len(tr.spec.groups) != NEW_GROUPS[name]:
+        fail(f"{name}: battery {[s.name for s in specs]}, {len(tr.spec.groups)} groups")
+    per_kind = expected_step_counts(st.generator, st.discriminator, NEW_GROUPS[name])
+    tr.profile_steps = True
+    torch.cuda.reset_peak_memory_stats()
+    by_kind, restore = count_by_kind(gt)
+    remove = install_launch_recorder(seen)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        tr.train(NEW_ITERS)
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+    finally:
+        remove()
+        restore()
+    runs = {k: len(v) for k, v in by_kind.items()}
+    if runs != {"d_step": NEW_ITERS, "d_reg_step": 1, "g_step": NEW_ITERS, "g_reg_step": 1}:
+        fail(f"{name}: step kinds run {runs}")
+    for kind, rows in by_kind.items():
+        for r in rows:
+            if r != per_kind[kind]:
+                fail(f"{name} {kind}: launches {r}, derived {per_kind[kind]}")
+    want = {n: sum(runs[k] * per_kind[k][n] for k in runs) for n in KERNELS}
+    if got != want:
+        fail(f"{name}: launches over train({NEW_ITERS}) {got}, derived {want}")
+    add_counts(counts, got)
+    for h in tr.metrics_history:
+        if not all(math.isfinite(v) for v in h.values()) or not all(f"g_{n}" in h for n in NEW_LOSSES[name]):
+            fail(f"{name}: iteration {h['iter']} metrics {h}")
+    log(f"{name} in-process: {NEW_GROUPS[name]} groups, battery {list(NEW_LOSSES[name])} "
+        f"({tr.step_cfg.predictor_dtype}, remat {tr.step_cfg.remat_predictors}), ADA "
+        f"{'adaptive' if tr.step_cfg.ada_p_fixed == 0 else f'fixed p {tr.step_cfg.ada_p_fixed}'}; launches "
+        f"over train({NEW_ITERS}) {got}, each step kind as derived ({ {k: per_kind[k] for k in runs} })")
+    for kind, ts_ in tr.step_times.items():
+        log(f"{name} time: {kind} median {statistics.median(ts_):.2f} ms over {len(ts_)} "
+            f"({[round(t, 2) for t in ts_]})")
+    it = [t * 1e3 for t in tr.iter_times]
+    log(f"{name} time: iteration median {statistics.median(it):.2f} ms ({[round(t, 2) for t in it]}); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    battery_timing(tr, statistics.median(tr.step_times["g_step"]))
+    tr.profile_steps = False
+    with_ada, without = [], []
+    for _ in range(ADA_REPS):
+        tr.augment_fn = ada.augment
+        with_ada += plain_iteration_ms(tr)
+        tr.augment_fn = None
+        without += plain_iteration_ms(tr)
+    tr.augment_fn = ada.augment
+    a, o = statistics.median(with_ada), statistics.median(without)
+    log(f"{name} ADA share: plain iteration (d_step + g_step) median {a:.2f} ms with ADA "
+        f"({[round(t, 2) for t in with_ada]}) against {o:.2f} ms with augment off "
+        f"({[round(t, 2) for t in without]}), alternated; ADA {a - o:.2f} ms = {100 * (a - o) / a:.1f}% "
+        f"of the iteration")
+    tr.close()
+    del tr, specs, predictors
+    torch.cuda.empty_cache()
+
+
+def afhq_metfaces_phase(build_root: Path, ffhq_run: Path, metfaces_folder: Path) -> tuple[Counter, dict]:
+    """Phase 18. (a) AFHQ and (b) MetFaces through ``train_generator`` at
+    full width, run side by side; before them the MetFaces transfer checked
+    in-process; (c) one trainer per config in-process; (d) the new nets,
+    ADA and the ADA steps card against CPU. Returns (c)'s launches by
+    (kernel, shape, dtype, static args) and their counts."""
+    import shutil
+
+    root = build_root / "afhq_metfaces"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    with Phase("afhq folder write"):
+        write_image_folder(root / "afhq" / "train" / "dog", AFHQ_IMAGES, 512, seed=7)
+        cats = root / "afhq" / "train" / "cat"
+        cats.mkdir()
+        for i in range(AFHQ_CATS):
+            (cats / f"{i:05d}.png").write_bytes(b"not a PNG: the AFHQ loader reads the dogs only")
+    configs = {}
+    for name, folder in (("afhq", root / "afhq"), ("metfaces", metfaces_folder)):
+        config = json.loads((CONFIGS / f"{name}.json").read_text())
+        config["results_dir"] = str(root / f"{name}_results")
+        config["data_config"]["path"] = str(folder)
+        config["training_config"].update(save_images_interval=1000, save_nets_interval=1000, log_every=1)
+        configs[name] = config
+    met_tc = configs["metfaces"]["training_config"]
+    met_tc["transfer_learning_model"] = {"enabled": True, "model_path": str(ffhq_run)}
+    met_tc["augment"]["p"] = FIXED_P
+    with Phase("metfaces transfer before the first step"):
+        transfer_check(configs["metfaces"], ffhq_run)
+
+    with Phase("afhq and metfaces command lines"):
+        runs = {}
+        t0 = time.perf_counter()
+        for name, config in configs.items():
+            path = root / f"{name}_config.json"
+            path.write_text(json.dumps(config))
+            runs[name] = CliRun(path, NEW_ITERS, root / f"train_generator_{name}.log")
+        for name, run in runs.items():
+            rc = run.finish(900)
+            if rc != 0:
+                fail(f"{name} train_generator exited {rc}; last lines:\n" + "".join(run.lines[-30:]))
+        log(f"afhq and metfaces train_generator: both runs side by side, {time.perf_counter() - t0:.1f} s; "
+            f"AFHQ from {AFHQ_IMAGES} 512-px PNGs in train/dog ({AFHQ_CATS} unreadable files in train/cat), "
+            f"MetFaces ('met-faces') from phase 16's {EVAL_IMAGES} PNGs with transfer from {ffhq_run.name}")
+        for name, run in runs.items():
+            check_new_run(name, run, configs[name])
+
+    seen: Counter = Counter()
+    counts: dict = {n: 0 for n in KERNELS}
+    with Phase("afhq and metfaces in-process"):
+        for name, config in configs.items():
+            config = copy.deepcopy(config)
+            config["training_config"]["transfer_learning_model"]["enabled"] = False
+            new_trainer_in_process(name, config, seen, counts)
+        augment_timing()
+    with Phase("afhq and metfaces card vs cpu"):
+        new_nets_card_vs_cpu()
+        augment_card_vs_cpu()
+        ada_steps_card_vs_cpu()
+    return seen, counts
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU only")
     needed = [REPO / "gan_control_torch" / "ops" / "kernels.py", CONFIGS / "ffhq.json"]
@@ -2487,7 +2954,7 @@ def main() -> None:
 
     # 7-9. training
     seen, counts, synthetic = train_phase(build_root)
-    image_folder_phase(build_root, synthetic)
+    ffhq_run = image_folder_phase(build_root, synthetic)
     with Phase("train kernels"):
         totals = train_kernel_phase(seen)
         blur_sep_variant_check()
@@ -2532,18 +2999,29 @@ def main() -> None:
         fail(f"the evaluation path launched {counts4}")
     merge_totals(totals, totals4)
 
+    # 18. AFHQ and MetFaces: ADA, the three new nets, transfer learning
+    seen5, counts5 = afhq_metfaces_phase(build_root, ffhq_run, build_root / "evaluation" / "images")
+    with Phase("afhq and metfaces kernels"):
+        totals5 = train_kernel_phase(seen5, f"AFHQ and MetFaces train({NEW_ITERS})", both_dtypes=False)
+    for n in KERNELS:
+        log(f"afhq and metfaces totals {n}: launches {counts5[n]} " + totals_text(totals5[n]))
+    if counts5 != {n: sum(c for key, c in seen5.items() if key[0] == n) for n in KERNELS}:
+        fail(f"the AFHQ and MetFaces launch hooks disagree with the counters {counts5}")
+    merge_totals(totals, totals5)
+
     entries = []
     for n, (route, src, replaces) in KERNELS.items():
         tot = totals[n]
         entries.append({
             "name": n, "route": route, "source": src, "replaces": replaces,
-            "launches": counts[n] + counts2[n] + counts3[n] + counts4[n],
+            "launches": counts[n] + counts2[n] + counts3[n] + counts4[n] + counts5[n],
             "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
             "library_ms": tot["library_ms"],
         })
+    log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

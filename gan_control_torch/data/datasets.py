@@ -5,7 +5,8 @@
     where it differs, randomly flipped, mapped to [-1, 1].
   - AFHQ: the dog images only (``train/dog`` and ``val/dog``, else the flat
     folder), with a random-resized crop at p = 0.5 before the resize.
-  - MetFaces: as FFHQ.
+  - MetFaces (``"metfaces"``, or ``"met-faces"`` as the shipped config
+    names it): as FFHQ.
 
 Loaders yield NHWC float32 numpy batches. Decoding runs on a pool of
 threads behind a bounded queue (PIL's decode and resize release the GIL).
@@ -201,8 +202,11 @@ def synthetic_data_loader(batch_size: int, size: int, seed: int = 0, shard_index
         yield full[shard_index * local : (shard_index + 1) * local]
 
 
+# "met-faces" is the name in the shipped metfaces.json; the JAX package
+# reaches its native loader before it checks the name, and without that
+# library raises for it
 _LOADERS = {"ffhq": get_ffhq_data_loader, "afhq": get_afhq_data_loader,
-            "metfaces": get_metfaces_data_loader}
+            "metfaces": get_metfaces_data_loader, "met-faces": get_metfaces_data_loader}
 
 
 def get_data_loader(data_config: dict, batch_size: int, size: int, seed: int = 0,

@@ -13,8 +13,9 @@ images to its list of feature layers, the criterion's embedding last) and:
     writes and ``attribute_rec`` compares, and
     ``controller_criterion(pred, target)``: that comparison.
 
-The six of the FFHQ configuration are ported; ``dogfacenet``, ``vgg_style``
-and ``imagenet_cls`` (AFHQ, MetFaces) are not.
+The six nets of the FFHQ configuration come first; ``vgg_style``,
+``dogfacenet`` and ``imagenet_cls`` serve the AFHQ and MetFaces
+configurations.
 """
 
 from __future__ import annotations
@@ -30,10 +31,10 @@ PREDICTOR_MODULES = {
     "expression_loss": "esr9",
     "hair_loss": "hair_pspnet",
     "recon_3d_loss": "face3dmm",
+    "style_loss": "vgg_style",
+    "dog_id_loss": "dogfacenet",
+    "classification_loss": "imagenet_cls",
 }
-
-# enabled only by the AFHQ and MetFaces configurations
-NOT_PORTED = ("style_loss", "dog_id_loss", "classification_loss")
 
 
 def predictor_module(loss_name: str) -> ModuleType:
@@ -41,6 +42,4 @@ def predictor_module(loss_name: str) -> ModuleType:
     R-Net of ``recon_3d_loss``)."""
     if loss_name.startswith("recon_"):
         loss_name = "recon_3d_loss"
-    if loss_name in NOT_PORTED:
-        raise NotImplementedError(f"{loss_name} is not ported to gan_control_torch yet")
     return importlib.import_module(f"gan_control_torch.losses.predictors.{PREDICTOR_MODULES[loss_name]}")

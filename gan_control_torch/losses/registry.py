@@ -10,10 +10,8 @@ are calibrated for the pretrained predictors). Each module is put in
 predictor none.
 
 The recon-3d sub-losses share one R-Net module and one forward per step
-(``share_key``). ``style_loss``, ``dog_id_loss`` and ``classification_loss``
-(AFHQ, MetFaces) are not ported: a config that enables one raises.
-``build_eval_only`` builds the predictor of a loss that only an evaluation
-uses.
+(``share_key``). ``build_eval_only`` builds the predictor of a loss that
+only an evaluation uses.
 """
 
 from __future__ import annotations
@@ -25,9 +23,10 @@ from gan_control_torch.losses.contrastive import (
     ContrastiveConfig,
     pairwise_hair_color,
     pairwise_l1,
+    pairwise_mse_gram,
     pairwise_sq_l2,
 )
-from gan_control_torch.losses.predictors import NOT_PORTED, PREDICTOR_MODULES, predictor_module
+from gan_control_torch.losses.predictors import PREDICTOR_MODULES, predictor_module
 from gan_control_torch.losses.predictors.common import calibrate_frozen_stats_, init_predictor_
 from gan_control_torch.losses.predictors.face3dmm import extract_feature
 from gan_control_torch.training.train_step import AttributeLossSpec
@@ -40,13 +39,16 @@ _log = get_logger(__name__)
 
 RECON_SUB_LOSSES = ("id", "ex", "tex", "angles", "gamma", "xy", "z")
 
-# each ported loss's criterion between two sets of embeddings
+# each loss's criterion between two sets of embeddings (separability)
 PAIRWISE_DIST = {
     "embedding_loss": pairwise_sq_l2,
+    "dog_id_loss": pairwise_sq_l2,
     "orientation_loss": pairwise_l1,
     "age_loss": pairwise_l1,
     "expression_loss": pairwise_l1,
     "recon_3d_loss": pairwise_l1,
+    "classification_loss": pairwise_l1,
+    "style_loss": pairwise_mse_gram,
     "hair_loss": pairwise_hair_color,
 }
 
@@ -122,11 +124,6 @@ def build_attr_losses(
     ``recon_3d_loss`` naming the one R-Net). ``device``: CUDA unless
     given; the i-th enabled predictor is drawn from ``seed + i``."""
     device = resolve_device(device)
-    for name in NOT_PORTED:
-        block = training_config.get(name)
-        if isinstance(block, dict) and block.get("enabled"):
-            raise NotImplementedError(f"{name} is enabled, and its predictor is not ported "
-                                      "to gan_control_torch yet")
     # the in-training battery's precision falls back to 'default' (TF32 on)
     prec_cfg = training_config.get("predictor_precision")
 
@@ -186,8 +183,7 @@ def build_eval_only(loss_name: str, training_config: dict, device: str | torch.d
     ``enabled`` set (pretrained weights from ``model_path``, else random
     from ``seed`` with a warning), at the battery's ``predictor_precision``.
     None when the block is absent or builds no spec of that name (the
-    recon-3d block builds its sub-losses); a predictor that is not ported
-    raises."""
+    recon-3d block builds its sub-losses)."""
     block = training_config.get(loss_name)
     if not isinstance(block, dict):
         return None

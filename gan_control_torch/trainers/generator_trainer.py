@@ -36,8 +36,15 @@ expression bar under ``graphs/``. Their z and noise come from
 ``torch.Generator``s seeded as the JAX trainer seeds its keys (FID 0,
 separability ``i`` and ``i + 1``, the histograms ``1000 + i``).
 
-Not ported yet: ADA and transfer learning (they raise) and multi-device
-training.
+``training_config.augment`` turns on ADA (``training/ada.py``) on the D's
+inputs in ``d_step`` and ``g_step``: ``p`` adapts toward ``ada_target``
+(logged as ``ada_p``), or stays at a fixed ``augment.p`` from step one.
+``transfer_learning_model`` starts G (and the EMA, a copy of it) from the
+``g_ema`` of a phase-1 run directory (``utils/transfer.partial_load``: the
+mapping keeps its init where the group layouts differ), before
+``ckpt_config`` resumes. Checkpoints carry ``ada_p`` across both packages.
+
+Not ported yet: multi-device training.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from gan_control_torch.evaluation.generation import (
 )
 from gan_control_torch.evaluation.separability import calc_separability
 from gan_control_torch.evaluation.tracker import Tracker
+from gan_control_torch.inference.inference import Inference
 from gan_control_torch.latent.groups import random_arrangement
 from gan_control_torch.losses.contrastive import pairwise_sq_l2
 from gan_control_torch.losses.predictors import predictor_module
@@ -74,6 +82,7 @@ from gan_control_torch.models.factory import (
     build_generator,
     build_group_spec,
 )
+from gan_control_torch.training import ada
 from gan_control_torch.training.state import init_gan_state
 from gan_control_torch.training.train_step import (
     AttributeLossSpec,
@@ -95,6 +104,7 @@ from gan_control_torch.utils.flax_bridge import gan_state_to_flax, load_gan_stat
 from gan_control_torch.utils.logging_utils import get_logger
 from gan_control_torch.utils.plotting import plot_bar, plot_hist
 from gan_control_torch.utils.precision import predictor_precision_ctx
+from gan_control_torch.utils.transfer import partial_load
 
 _log = get_logger(__name__)
 
@@ -108,10 +118,6 @@ def mixing_noise(rng: np.random.Generator, batch: int, latent_dim: int, prob: fl
     return tuple(
         rng.standard_normal((batch, latent_dim)).astype(np.float32) for _ in range(n)
     )
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to gan_control_torch yet")
 
 
 class GeneratorTrainer:
@@ -130,8 +136,10 @@ class GeneratorTrainer:
         (a missing path raises). ``attr_losses`` and ``predictors`` come
         from ``losses.registry.build_attr_losses``; the predictors are moved
         to ``device`` and cast to ``predictor_dtype`` in place (the
-        recon-3d sharing kept). ``ckpt_config`` (``enabled``, ``ckpt``)
-        resumes from a whole-state checkpoint of either package."""
+        recon-3d sharing kept). ``transfer_learning_model`` (``enabled``,
+        ``model_path``: a phase-1 run directory) loads G from that run's
+        ``g_ema``; ``ckpt_config`` (``enabled``, ``ckpt``) then resumes from a
+        whole-state checkpoint of either package."""
         if (config_path is None) == (config is None):
             raise ValueError("give exactly one of config_path and config")
         self.config = dict(config) if config is not None else read_json(config_path)
@@ -140,10 +148,6 @@ class GeneratorTrainer:
             raise ValueError("config problems: " + "; ".join(problems))
         mc, tc = self.config["model_config"], self.config["training_config"]
         self.mc, self.tc = mc, tc
-        if tc.get("augment", {}).get("enabled", False):
-            raise _not_ported("ADA augmentation")
-        if tc.get("transfer_learning_model", {}).get("enabled"):
-            raise _not_ported("transfer learning")
         self.device = resolve_device(device)
 
         self.save_dir = None
@@ -156,6 +160,7 @@ class GeneratorTrainer:
             _log.info("save dir: %s", self.save_dir)
 
         self.spec = build_group_spec(self.config)
+        aug = tc.get("augment", {})
         self.step_cfg = TrainStepConfig(
             batch=tc["batch"],
             mini_batch=tc["mini_batch"],
@@ -168,6 +173,10 @@ class GeneratorTrainer:
             mixing=tc.get("mixing", 0.0),
             vanilla=mc.get("vanilla", False),
             style_dim=mc.get("latent_size", 512),
+            ada_enabled=aug.get("enabled", False),
+            ada_target=aug.get("ada_target", 0.6),
+            ada_length=aug.get("ada_length", 500_000),
+            ada_p_fixed=aug.get("p", 0.0),
             # predictor remat in g_step: off under bf16 without remat (the
             # activations fit), on for the f32 and remat memory plans
             remat_predictors=mc.get(
@@ -183,7 +192,19 @@ class GeneratorTrainer:
         generator = build_generator(self.config, self.spec, device=self.device, seed=self.seed)
         discriminator = build_discriminator(self.config, device=self.device, seed=self.seed + 1)
         self.state = init_gan_state(generator, discriminator, tc, seed=self.seed)
+        self.augment_fn = ada.augment if self.step_cfg.ada_enabled else None
+        if self.step_cfg.ada_p_fixed > 0:
+            # a fixed augmentation strength from step one
+            self.state.ada_p = torch.tensor(float(self.step_cfg.ada_p_fixed), device=self.device)
         self.start_iter = tc.get("start_iter", 0)
+
+        tl = tc.get("transfer_learning_model", {})
+        if tl.get("enabled"):
+            source, _, _, _ = Inference.retrieve_model(Path(tl["model_path"]), torch.device("cpu"), None)
+            st = self.state
+            st.generator.load_state_dict(partial_load(st.generator.state_dict(), source.state_dict()))
+            st.g_ema.load_state_dict(st.generator.state_dict())
+            _log.info("transfer learning: G and its EMA from %s", tl["model_path"])
 
         # randomized mini-batch mode: a fresh placement every g_step
         self._arrangement_rng = None
@@ -279,7 +300,7 @@ class GeneratorTrainer:
             real = self.next_real()
         if i % tc.get("d_every", 1) == 0:
             metrics.update(self._run("d_step", d_step, state, cfg, self.spec, real,
-                                     self._sample_z(tc["batch"])))
+                                     self._sample_z(tc["batch"]), augment_fn=self.augment_fn))
         if i % tc.get("d_reg_every", 16) == 0:
             metrics.update(self._run("d_reg_step", d_reg_step, state, cfg, real))
         if self._arrangement_rng is not None:
@@ -287,11 +308,11 @@ class GeneratorTrainer:
             z = self._host_rng.standard_normal((tc["batch"], cfg.style_dim)).astype(np.float32)
             metrics.update(self._run("g_step", g_step, state, cfg, self.spec, (self._to_device(z),),
                                      attr_losses=self.attr_losses, predictors=self.predictors,
-                                     arrangement=arrangement))
+                                     arrangement=arrangement, augment_fn=self.augment_fn))
         else:
             metrics.update(self._run("g_step", g_step, state, cfg, self.spec,
                                      self._sample_z(tc["batch"]), attr_losses=self.attr_losses,
-                                     predictors=self.predictors))
+                                     predictors=self.predictors, augment_fn=self.augment_fn))
         if i % tc.get("g_reg_every", 4) == 0:
             path_batch = max(cfg.batch // max(cfg.path_batch_shrink, 1), 1)
             metrics.update(self._run("g_reg_step", g_reg_step, state, cfg,
@@ -304,7 +325,7 @@ class GeneratorTrainer:
             "g": s.generator.state_dict(), "d": s.discriminator.state_dict(),
             "g_ema": s.g_ema.state_dict(), "g_opt": s.g_opt.state_dict(),
             "d_opt": s.d_opt.state_dict(), "mean_path_length": s.mean_path_length,
-            "step": s.step, "rng": s.rng.get_state(),
+            "step": s.step, "ada_p": s.ada_p, "rng": s.rng.get_state(),
             "host_rng": self._host_rng.bit_generator.state,
             "arrangement_rng": (self._arrangement_rng.bit_generator.state
                                 if self._arrangement_rng is not None else None),
@@ -317,7 +338,7 @@ class GeneratorTrainer:
         s.g_ema.load_state_dict(snap["g_ema"])
         s.g_opt.load_state_dict(snap["g_opt"])
         s.d_opt.load_state_dict(snap["d_opt"])
-        s.mean_path_length, s.step = snap["mean_path_length"], snap["step"]
+        s.mean_path_length, s.step, s.ada_p = snap["mean_path_length"], snap["step"], snap["ada_p"]
         s.rng.set_state(snap["rng"])
         self._host_rng.bit_generator.state = snap["host_rng"]
         if self._arrangement_rng is not None:

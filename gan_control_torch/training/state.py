@@ -5,7 +5,8 @@ Adam with the lazy-regularization correction: ``lr * r`` and
 ``betas ** r`` with ``r = reg_every / (reg_every + 1)``, betas ``(0, 0.99)``,
 eps 1e-8 (``torch.optim.Adam`` is the optax formula: bias-corrected moments,
 eps added to the corrected root). EMA: ``ema = d * ema + (1 - d) * params``
-with ``d = 0.5 ** (batch / g_moving_average)``, in place.
+with ``d = 0.5 ** (batch / g_moving_average)``, in place. ``ada_p``, the ADA
+augmentation probability, starts at 0.
 """
 
 from __future__ import annotations
@@ -58,16 +59,18 @@ class GANTrainState:
     g_opt: torch.optim.Optimizer
     d_opt: torch.optim.Optimizer
     mean_path_length: torch.Tensor  # f32 scalar on the models' device
-    rng: torch.Generator  # injection noise, mixing index, path-length noise
+    rng: torch.Generator  # injection noise, mixing index, path-length noise, ADA draws
     step: int = 0
+    # f32 scalar, the ADA augmentation probability
+    ada_p: torch.Tensor = dataclasses.field(default_factory=lambda: torch.zeros(()))
 
 
 def init_gan_state(generator: nn.Module, discriminator: nn.Module,
                    training_config: dict, seed: int = 0) -> GANTrainState:
     """EMA = a copy of the generator, the two reg-ratio Adams from the
     JSON ``training_config`` (``lr_g``/``lr_d``, ``g_reg_every``/
-    ``d_reg_every``), the path-length mean at 0, and a ``torch.Generator``
-    on the models' device seeded with ``seed``."""
+    ``d_reg_every``), the path-length mean and ``ada_p`` at 0, and a
+    ``torch.Generator`` on the models' device seeded with ``seed``."""
     tc = training_config
     g_ema = copy.deepcopy(generator).eval()
     g_ema.requires_grad_(False)
@@ -80,4 +83,5 @@ def init_gan_state(generator: nn.Module, discriminator: nn.Module,
         d_opt=reg_adam(discriminator.parameters(), tc["lr_d"], tc.get("d_reg_every", 16)),
         mean_path_length=torch.zeros((), dtype=torch.float32, device=device),
         rng=torch.Generator(device=device).manual_seed(seed),
+        ada_p=torch.zeros((), dtype=torch.float32, device=device),
     )

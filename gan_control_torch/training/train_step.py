@@ -4,10 +4,15 @@
   - ``d_step``: D logistic loss on G(z) (iid z, no arrangement, G under
     ``no_grad``) against the reals; the gradient is scaled as the reference
     scales it, ``mean_loss * num_mini / mini_batch`` (each mini-batch chunk
-    divided by its size and accumulated).
+    divided by its size and accumulated). With ``augment_fn`` (ADA) the
+    fakes and then the reals are augmented at ``state.ada_p``; in ADA mode
+    (``ada_enabled`` and no fixed ``ada_p_fixed``) ``ada_p`` then adapts
+    toward ``ada_target`` from ``r_t = mean(sign(real logits))``.
   - ``d_reg_step``: R1 on the unaugmented reals, weighted
     ``r1 / 2 * d_reg_every``.
-  - ``g_step``: non-saturating loss of D on G(z), z arranged per mini-batch
+  - ``g_step``: non-saturating loss of D on G(z) (augmented by
+    ``augment_fn`` when given; the battery reads G(z) unaugmented), z
+    arranged per mini-batch
     chunk by ``re_arrange_z`` (or, in the randomized mini-batch mode, by the
     step's ``arrangement``: one z, no mixing), plus the contrastive
     attribute losses of the frozen predictor battery (``attr_losses``, from
@@ -39,7 +44,11 @@ their parameters take no gradient, the image does.
 
 Each optimizer step gives a zero gradient to every parameter the loss did
 not reach, as optax updates every leaf, so all parameters share one Adam
-step count (the checkpoint's optax ``count``). ADA is not ported yet.
+step count (the checkpoint's optax ``count``). R1 and the path length
+never augment, as the reference's regularisation steps do not.
+
+``augment_fn`` has the JAX hook's signature, ``(images, p, generator) ->
+images`` (``training.ada.augment``), its draws from ``state.rng``.
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from gan_control_torch.training.gan_losses import (
     path_length_penalty,
     r1_penalty,
 )
+from gan_control_torch.training.ada import ada_p_update
 from gan_control_torch.training.state import GANTrainState, ema_decay, ema_update, optimizer_step
 from gan_control_torch.utils.precision import battery_dtype
 
@@ -116,6 +126,12 @@ class TrainStepConfig:
     mixing: float = 0.0
     vanilla: bool = False
     style_dim: int = 512
+    ada_target: float = 0.6
+    ada_length: float = 500_000.0
+    ada_enabled: bool = False
+    # the configured augment['p']: 0 adapts p toward ada_target, a positive
+    # value is a fixed strength, never adapted
+    ada_p_fixed: float = 0.0
     # re-run each frozen predictor in the backward instead of holding every
     # predictor's activations at once
     remat_predictors: bool = True
@@ -156,11 +172,18 @@ def _gen_images(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | No
              generator=state.rng)
 
 
+AugmentFn = Callable[[torch.Tensor, torch.Tensor, torch.Generator], torch.Tensor]
+
+
 def d_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
            real_img: torch.Tensor, z_list: Sequence[torch.Tensor], *,
-           noise=None, inject_index: int | None = None) -> dict:
+           noise=None, inject_index: int | None = None,
+           augment_fn: AugmentFn | None = None) -> dict:
     with torch.no_grad():
         fake_img, _ = _gen_images(state, cfg, spec, z_list, noise, inject_index, arrange=False)
+        if augment_fn is not None:
+            fake_img = augment_fn(fake_img, state.ada_p, state.rng)
+            real_img = augment_fn(real_img, state.ada_p, state.rng)
     d = state.discriminator
     fake_pred, _ = d(fake_img)
     real_pred, _ = d(real_img)
@@ -168,12 +191,17 @@ def d_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
     state.d_opt.zero_grad(set_to_none=True)
     (loss * (cfg.num_mini / cfg.mini_batch)).backward()
     optimizer_step(state.d_opt)
-    return {
+    r_t = torch.sign(real_pred.detach()).mean()
+    metrics = {
         "d_loss": loss.detach(),
         "real_score": real_pred.detach().mean(),
         "fake_score": fake_pred.detach().mean(),
-        "r_t": torch.sign(real_pred.detach()).mean(),
+        "r_t": r_t,
     }
+    if cfg.ada_enabled and cfg.ada_p_fixed == 0:
+        state.ada_p = ada_p_update(state.ada_p, r_t, cfg.ada_target, real_img.shape[0], cfg.ada_length)
+        metrics["ada_p"] = state.ada_p
+    return metrics
 
 
 def d_reg_step(state: GANTrainState, cfg: TrainStepConfig, real_img: torch.Tensor) -> dict:
@@ -251,17 +279,21 @@ def g_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
            inject_index: int | None = None,
            attr_losses: Sequence[AttributeLossSpec] = (),
            predictors: Mapping[str, nn.Module] | None = None,
-           arrangement: Arrangement | None = None) -> dict:
-    """The adversarial loss plus, with ``attr_losses``, the contrastive
-    losses of the frozen ``predictors`` (loss name -> module); ``g_loss``
-    is the total. ``arrangement``: the randomized mini-batch mode's
-    placement for this step (numpy or tensors), applied to every chunk."""
+           arrangement: Arrangement | None = None,
+           augment_fn: AugmentFn | None = None) -> dict:
+    """The adversarial loss (on the images augmented by ``augment_fn`` when
+    given) plus, with ``attr_losses``, the contrastive losses of the frozen
+    ``predictors`` (loss name -> module) on the unaugmented images;
+    ``g_loss`` is the total. ``arrangement``: the randomized mini-batch
+    mode's placement for this step (numpy or tensors), applied to every
+    chunk."""
     if arrangement is not None:
         arrangement = arrangement.to(next(state.generator.parameters()).device)
     with _frozen(state.discriminator):
         img, _ = _gen_images(state, cfg, spec, z_list, noise, inject_index, arrange=True,
                              arrangement=arrangement)
-        fake_pred, _ = state.discriminator(img)
+        d_in = img if augment_fn is None else augment_fn(img, state.ada_p, state.rng)
+        fake_pred, _ = state.discriminator(d_in)
         adv = g_nonsaturating_loss(fake_pred)
         total, metrics = adv, {"g_adv_loss": adv.detach()}
         if attr_losses:

@@ -16,8 +16,8 @@ carries over unchanged. :func:`state_dict_to_flax` is the inverse.
 The whole phase-1 train state travels as the JAX package's
 ``GANTrainState`` (:func:`gan_state_to_flax`, :func:`load_gan_state`):
 exactly its fields, which ``flax.serialization`` restores strictly; each
-Adam's moments and step count in optax's ``adam`` layout; ``ada_p`` 0 (ADA
-is not ported); ``rng`` a key derived from the seed and the step.
+Adam's moments and step count in optax's ``adam`` layout; the state's
+``ada_p``; ``rng`` a key derived from the seed and the step.
 """
 
 from __future__ import annotations
@@ -218,7 +218,7 @@ def gan_state_to_flax(state, seed: int) -> dict[str, Any]:
         "g_opt_state": adam_to_optax(state.g_opt, state.generator),
         "d_opt_state": adam_to_optax(state.d_opt, state.discriminator),
         "mean_path_length": np.asarray(float(state.mean_path_length), np.float32),
-        "ada_p": np.asarray(0.0, np.float32),
+        "ada_p": np.asarray(float(state.ada_p), np.float32),
         "rng": rng_key(seed, int(state.step)),
     }
 
@@ -226,14 +226,12 @@ def gan_state_to_flax(state, seed: int) -> dict[str, Any]:
 def load_gan_state(state, tree: Mapping[str, Any]) -> None:
     """Load a whole-state checkpoint (written by either package) into the
     port's ``GANTrainState`` in place: parameters, EMA, both Adams, the
-    step, the path-length mean, and the ``torch.Generator`` reseeded from
-    ``rng``. Strict, as ``flax.serialization``: a missing or an extra field
+    step, the path-length mean, ``ada_p``, and the ``torch.Generator``
+    reseeded from ``rng``. Strict, as ``flax.serialization``: a missing or an extra field
     raises."""
     if set(tree) != set(GAN_STATE_FIELDS):
         raise ValueError(f"not a whole train state: missing {sorted(set(GAN_STATE_FIELDS) - set(tree))}, "
                          f"extra {sorted(set(tree) - set(GAN_STATE_FIELDS))}")
-    if float(np.asarray(tree["ada_p"])) != 0.0:
-        raise NotImplementedError("the checkpoint carries an ADA probability; ADA is not ported")
     load_flax_params(state.generator, tree["g_params"])
     load_flax_params(state.discriminator, tree["d_params"])
     load_flax_params(state.g_ema, tree["g_ema"])
@@ -243,4 +241,6 @@ def load_gan_state(state, tree: Mapping[str, Any]) -> None:
     state.mean_path_length = torch.tensor(float(np.asarray(tree["mean_path_length"])),
                                           dtype=torch.float32,
                                           device=state.mean_path_length.device)
+    state.ada_p = torch.tensor(float(np.asarray(tree["ada_p"])), dtype=torch.float32,
+                               device=state.ada_p.device)
     state.rng.manual_seed(generator_seed(tree["rng"]))

@@ -133,14 +133,24 @@ def test_cast_predictor_params_keeps_the_sharing(ffhq_battery):
         rnet.load_state_dict(saved)
 
 
+def _shipped_block(name):
+    """The enabled block of ``name`` from the shipped AFHQ or MetFaces config."""
+    for cfg in ("afhq", "metfaces"):
+        block = json.loads((CONFIGS / f"{cfg}.json").read_text())["training_config"][name]
+        if block.get("enabled"):
+            return block
+    raise KeyError(name)
+
+
 @pytest.mark.parametrize("name", ["style_loss", "dog_id_loss", "classification_loss"])
 def test_build_attr_losses_refuses_what_is_not_ported(name):
-    """The AFHQ and MetFaces losses raise, naming the loss, rather than
-    being skipped."""
-    tc = {name: {"enabled": True}, "age_loss": FFHQ["training_config"]["age_loss"]}
-    with pytest.raises(NotImplementedError, match=name):
-        build_attr_losses(tc, device="cpu")
-    build_attr_losses({name: {"enabled": False}}, device="cpu")
+    """The AFHQ and MetFaces losses, which the port once refused, build
+    their spec and frozen net now; a disabled block builds nothing."""
+    tc = {name: _shipped_block(name), "age_loss": FFHQ["training_config"]["age_loss"]}
+    specs, predictors = build_attr_losses(tc, device="cpu")
+    assert [s.name for s in specs] == ["age_loss", name]
+    assert not any(p.requires_grad for p in predictors[name].parameters())
+    assert build_attr_losses({name: {"enabled": False}}, device="cpu") == ((), {})
 
 
 def test_build_attr_losses_defaults_to_cuda():

@@ -301,8 +301,12 @@ evaluation = {f"gan_control_torch.evaluation.{m}" for m in (
     "gan_control_torch.utils.image_utils", "gan_control_torch.utils.plotting",
     "gan_control_torch.calc_inception", "gan_control_torch.calibrate_thresholds"}
 assert evaluation <= set(mods), sorted(evaluation - set(mods))
+afhq_metfaces = {"gan_control_torch.losses.predictors.dogfacenet", "gan_control_torch.losses.predictors.vgg_style",
+                 "gan_control_torch.losses.predictors.imagenet_cls", "gan_control_torch.training.ada",
+                 "gan_control_torch.utils.transfer"}
+assert afhq_metfaces <= set(mods), sorted(afhq_metfaces - set(mods))
 assert "matplotlib" not in sys.modules
-assert len(mods) >= 45, mods
+assert len(mods) >= 50, mods
 import torch
 from gan_control_torch.inference.inference import Inference
 if not torch.cuda.is_available():

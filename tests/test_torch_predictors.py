@@ -70,7 +70,8 @@ BATCH = 2
 SIZE = 64
 CONFIGS = Path(__file__).resolve().parent.parent / "gan_control_tpu" / "configs"
 TC = json.loads((CONFIGS / "ffhq.json").read_text())["training_config"]
-LOSSES = list(PREDICTOR_MODULES)
+# the six nets of the FFHQ battery; the AFHQ and MetFaces nets have their own files
+LOSSES = [n for n in PREDICTOR_MODULES if n in TC]
 
 
 def _jax_module(loss_name):

@@ -6,13 +6,16 @@ run it with
 
     python -m pytest --noconftest tests/test_torch_predictors_gpu.py -q
 
-Each of the six nets of the FFHQ battery runs at batch 2, f32 with TF32
-off, on smooth 512-px images, from the same weights on both devices (the
-batch-norm statistics set from those images, and the hair mask centred, by
-``losses.registry.calibrate_battery``). The comparison is ``chip_smoke``'s:
-every returned layer to 1e-3 of its largest entry, the image gradient of a
-seeded projection to 5e-2 in relative L2 norm, a hair mask pixel flipped
-only at the threshold (logits within 1e-2 of max).
+Each of the six nets of the FFHQ battery, and the three that the AFHQ and
+MetFaces configs add (DogFaceNet, ResNet-18, the VGG-16 style net), runs at
+batch 2, f32 with TF32 off, on smooth 512-px images, from the same weights
+on both devices (the batch-norm statistics set from those images, and the
+hair mask centred, by ``losses.registry.calibrate_battery``). The
+comparison is ``chip_smoke``'s: every returned layer to 1e-3 of its largest
+entry, the image gradient of a seeded projection to 5e-2 in relative L2
+norm, a hair mask pixel flipped only at the threshold (logits within 1e-2
+of max). ADA's ``apply_affine`` and ``apply_color`` on the card against the
+CPU, as ``chip_smoke`` holds them.
 """
 
 import json
@@ -37,6 +40,7 @@ from gan_control_torch.losses.registry import (  # noqa: E402
 
 FFHQ = json.loads((REPO / "gan_control_tpu" / "configs" / "ffhq.json").read_text())
 NETS = ("embedding_loss", "orientation_loss", "age_loss", "expression_loss", "hair_loss", "recon_3d_loss")
+NEW_NETS = tuple(chip_smoke.NEW_NETS)
 
 
 @pytest.fixture(scope="module")
@@ -119,3 +123,32 @@ def test_f32_battery_backward_keeps_its_precision(battery, name):
           f"{rel_unguarded:.3e} with the backward under the caller's TF32")
     assert rel <= chip_smoke.PREDICTOR_GRAD_REL_L2
     assert rel <= rel_unguarded
+
+
+@pytest.fixture(scope="module")
+def new_battery(battery):
+    """The AFHQ and MetFaces nets at random init, calibrated on the same
+    images."""
+    _, images = battery
+    nets = {}
+    for name, cfg_name in chip_smoke.NEW_NETS.items():
+        block = json.loads((REPO / "gan_control_tpu" / "configs" / f"{cfg_name}.json").read_text())
+        _, preds = build_attr_losses({name: block["training_config"][name]}, device="cpu", seed=3)
+        calibrate_battery(preds, images)
+        nets[name] = preds[name]
+    return nets, images
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", NEW_NETS)
+def test_new_predictor_card_matches_cpu(new_battery, name):
+    nets, images = new_battery
+    errs = chip_smoke.predictor_card_vs_cpu(name, nets[name], images[:2], seed=10 + NEW_NETS.index(name))
+    assert errs["layers"] <= chip_smoke.PREDICTOR_RTOL
+    assert errs["grad_rel_l2"] <= chip_smoke.PREDICTOR_GRAD_REL_L2
+
+
+@pytest.mark.gpu
+def test_augment_card_matches_cpu(battery):
+    errs = chip_smoke.augment_card_vs_cpu(seed=1)
+    assert max(errs.values()) <= chip_smoke.AUGMENT_RTOL

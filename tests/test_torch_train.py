@@ -414,13 +414,16 @@ def test_trainer_dry_run_train_and_checkpoint(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """ADA raises; without an injected loader the data come from
-    ``data_config``, and its missing path raises rather than falling back
-    to synthetic data."""
+    """Without an injected loader the data come from ``data_config``, and
+    its missing path raises rather than falling back to synthetic data; a
+    transfer-learning source that is not a run directory raises. ADA, once
+    refused, builds its hook."""
     config = _tiny_config()
     with pytest.raises(FileNotFoundError, match="data_config.path"):
         GeneratorTrainer(config=config, init_dirs=False, device="cpu")
     config["training_config"]["augment"]["enabled"] = True
-    with pytest.raises(NotImplementedError):
-        GeneratorTrainer(config=config, init_dirs=False, device="cpu",
-                         data_loader=t_synthetic(16, SIZE))
+    tr = GeneratorTrainer(config=config, init_dirs=False, device="cpu", data_loader=t_synthetic(16, SIZE))
+    assert tr.augment_fn is not None and tr.step_cfg.ada_enabled
+    config["training_config"]["transfer_learning_model"] = {"enabled": True, "model_path": "no/such/run"}
+    with pytest.raises(FileNotFoundError):
+        GeneratorTrainer(config=config, init_dirs=False, device="cpu", data_loader=t_synthetic(16, SIZE))
