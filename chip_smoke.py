@@ -169,15 +169,44 @@ seconds:
     3] bf16 p 0.5 with its device time by kernel; (d) card against CPU: the
     three new nets alone (as phase 9), ``apply_affine`` + ``apply_color``
     at 512 px with explicit matrices, a size-32 ``d_step`` and ``g_step``
-    with a fixed-matrix augment; (e) every (kernel, shape, dtype) that (c)
+    with a fixed-matrix augment, and that ``g_step``'s distance from a
+    float64 run on the CPU, of the CPU's, of the card's and of the card's
+    with cuDNN off; (e) every (kernel, shape, dtype) that (c)
     launched, forward and backward against the plain version, with its
     times and bound. The two runs' logs go to
     ``build/gan_control_torch/afhq_metfaces/``;
-19. the script's total seconds; one JSON line of per-kernel numbers over
+19. alignment in the phase-2a sweep: seeded random-init FAN (4 modules),
+    S3FD, BlazeFace and ResNetDepth (3, 8, 36, 3) checkpoints in their
+    reference layouts under ``build/gan_control_torch/alignment/``; ``python
+    -m gan_control_torch.make_attributes_df --align_3d --fan_weights ...
+    --detector {sfd,blazeface} --detector_weights ... --depth_weights ...``
+    (batch 40, 160 rows) on phase 10's directory, once per detector: rows/s
+    beside phase 10's, each stage's host and device ms per batch (generation,
+    detector net, detector decode + NMS, FAN, heatmap decode, depth, the POS
+    warp, the alignment as a whole, the predictors), the detector's
+    candidate, kept-box and NMS-pass counts, misses and boxes without a
+    crop window, the POS scale's range, the peak, the table against phase
+    10's columns; one aligned batch in-process with its launches against the
+    derived counts; each net card against CPU (f32, TF32 off) and the
+    discrete results (best box, argmax landmarks, aligned crops) where the
+    decision margin exceeds the nets' error, with the flips counted;
+20. projection: ``python -m gan_control_torch.project --steps 200`` on the
+    same directory (batch 1, a model-generated target, random LPIPS): ms
+    per step, the loss at the first and last logged step, the peak and its
+    three artifacts; in-process ``get_avg_latent`` and three projector
+    steps with their launches against the derived counts (per step: one
+    ``fused_bias_act`` and one gradient per StyledConv, one ``blur2x_up``
+    and one ``blur2x_down`` per ToRGB skip), the median synced step, its
+    device-busy share and peak; three steps at size 32 card against CPU
+    from the same draws; then every (kernel, shape, dtype) that phases
+    19-20 launched in-process, forward and backward against the plain
+    version, with its times and bound;
+21. the script's total seconds; one JSON line of per-kernel numbers over
     ``train(5)``, the phase-2 launches of phases 10-12, the serving
-    launches of phase 15, the evaluation launches of phase 16 and the
-    AFHQ and MetFaces launches of phase 18 (launches, times and bounds
-    summed over the five), then the card's line and the result line.
+    launches of phase 15, the evaluation launches of phase 16, the AFHQ and
+    MetFaces launches of phase 18 and the alignment and projection launches
+    of phases 19-20 (launches, times and bounds summed over the six), then
+    the card's line and the result line.
 
 Times, per launch at each shape and summed over a path's launches:
 "host-rate" is the mean over back-to-back eager calls between two CUDA
@@ -196,6 +225,7 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
 import math
 import os
 import re
@@ -2618,6 +2648,7 @@ def ada_steps_card_vs_cpu() -> None:
     take other branches (an error of 1.14e-3 in a D gradient, measured;
     ROADMAP Queue 3). ``augment_card_vs_cpu`` holds the fold at 512 px."""
     from gan_control_torch.models.factory import build_discriminator, build_generator, build_group_spec
+    from gan_control_torch.ops import kernels
     from gan_control_torch.training import train_step as ts
     from gan_control_torch.training.state import init_gan_state
 
@@ -2636,20 +2667,43 @@ def ada_steps_card_vs_cpu() -> None:
     g0 = build_generator(config, spec, device="cpu", seed=0)
     d0 = build_discriminator(config, device="cpu", seed=1)
     noise = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in g0.noise_shapes(b)]
-    out = {}
-    for dev in ("cpu", "cuda"):
-        for kind in ("d_step", "g_step"):
-            st = init_gan_state(copy.deepcopy(g0).to(dev), copy.deepcopy(d0).to(dev), tc)
-            st.ada_p = torch.tensor(0.3, device=dev)
-            kw = dict(noise=[n.to(dev) for n in noise], augment_fn=augment_fn)
-            if kind == "d_step":
-                m = ts.d_step(st, cfg, spec, real.to(dev), (z.to(dev),), **kw)
-            else:
-                m = ts.g_step(st, cfg, spec, (z.to(dev),), **kw)
-            grads = {f"{p}.{n}": t.grad.detach().cpu() for p, mod in (("G", st.generator),
-                                                                     ("D", st.discriminator))
-                     for n, t in mod.named_parameters() if t.grad is not None}
-            out[dev, kind] = ({k: float(v) for k, v in m.items()}, grads, float(st.ada_p))
+
+    def step(dev: str, kind: str, dtype=torch.float32):
+        g, d = copy.deepcopy(g0).to(dev, dtype), copy.deepcopy(d0).to(dev, dtype)
+        g.dtype = d.dtype = dtype
+        st = init_gan_state(g, d, tc)
+        st.ada_p = torch.tensor(0.3, device=dev)
+        kw = dict(noise=[n.to(dev, dtype) for n in noise], augment_fn=augment_fn)
+        if kind == "d_step":
+            m = ts.d_step(st, cfg, spec, real.to(dev, dtype), (z.to(dev, dtype),), **kw)
+        else:
+            m = ts.g_step(st, cfg, spec, (z.to(dev, dtype),), **kw)
+        grads = {f"{p}.{n}": t.grad.detach().cpu().double() for p, mod in (("G", st.generator),
+                                                                          ("D", st.discriminator))
+                 for n, t in mod.named_parameters() if t.grad is not None}
+        return {k: float(v) for k, v in m.items()}, grads, float(st.ada_p)
+
+    out = {(dev, kind): step(dev, kind) for dev in ("cpu", "cuda") for kind in ("d_step", "g_step")}
+    # the float64 reference on the CPU, and the card with cuDNN off (ATen's own convs):
+    # which side of card vs CPU lies nearer the float64 gradients, and whether cuDNN's
+    # convs carry the difference (ROADMAP Queue 3 item 7); printed, the bound unchanged
+    check = kernels._check_dtype
+    kernels._check_dtype = lambda name, x: None  # the plain versions, in float64 on the CPU
+    try:
+        ref = step("cpu", "g_step", torch.float64)[1]
+    finally:
+        kernels._check_dtype = check
+    torch.backends.cudnn.enabled = False
+    try:
+        no_cudnn = step("cuda", "g_step")[1]
+    finally:
+        torch.backends.cudnn.enabled = True
+    for label, grads in (("cpu f32", out["cpu", "g_step"][1]), ("card f32 (cuDNN)", out["cuda", "g_step"][1]),
+                         ("card f32 (cuDNN off)", no_cudnn)):
+        worst, worst_name = worst_grad_err(ref, grads)
+        noise_w = max(worst_grad_err({k: v}, {k: grads[k]})[0] for k, v in ref.items() if "noise" in k)
+        log(f"ADA g_step against float64 (CPU): {label} worst rel err {worst:.3g} ({worst_name}), "
+            f"worst noise weight {noise_w:.3g}")
     for kind in ("d_step", "g_step"):
         (mc, gc, pc), (mg, gg, pg) = out["cpu", kind], out["cuda", kind]
         loss_err = max(abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])) for k in mc)
@@ -2909,6 +2963,363 @@ def afhq_metfaces_phase(build_root: Path, ffhq_run: Path, metfaces_folder: Path)
     return seen, counts
 
 
+# ---------------------------------------------------------------------------
+# phases 19-20: alignment in the sweep, and projection (this slice)
+# ---------------------------------------------------------------------------
+
+ALIGN_ROWS = 160  # four batches of SWEEP_BATCH per command line
+ALIGN_DETECTORS = ("sfd", "blazeface")
+ALIGN_PARITY_BATCH = 2
+PROJ_STEPS = 200
+PROJ_COUNTED_STEPS = 3
+PROJ_TIMED_STEPS = 10
+PROJ_PARITY_STEPS = 3
+# projector card vs CPU (f32, TF32 off, the same draws): the latent and the
+# noises after three Adam steps, each against its largest entry, as
+# PARITY_RTOL (the same sums in other orders through the G's and LPIPS's
+# forward and backward)
+PROJ_PARITY_RTOL = 1e-3
+
+
+def write_alignment_checkpoints(root: Path) -> dict:
+    """FAN (4 modules), S3FD, BlazeFace and ResNetDepth (3, 8, 36, 3) at
+    seeded random init, each in its reference checkpoint's layout (the depth
+    net's keys with the ``module.`` prefix under ``state_dict``)."""
+    from gan_control_torch.alignment import blazeface, depth, fan, sfd
+    from gan_control_torch.losses.predictors.common import init_predictor_
+
+    root.mkdir(parents=True, exist_ok=True)
+    paths = {n: root / f"{n}.pth" for n in ("fan", "sfd", "blazeface", "depth")}
+    torch.save(init_predictor_(fan.FANNet(4), 21).state_dict(), paths["fan"])
+    torch.save(init_predictor_(sfd.S3FD(), 22).state_dict(), paths["sfd"])
+    torch.save(init_predictor_(blazeface.BlazeFaceNet(), 23).state_dict(), paths["blazeface"])
+    sd = init_predictor_(depth.ResNetDepth(), 24).state_dict()
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, paths["depth"])
+    return paths
+
+
+def aligned_sweep(detector: str, model_dir: Path, paths: dict, root: Path, unaligned: float | None) -> None:
+    """The command line with ``--align_3d`` and ``detector``: rows/s beside
+    phase 10's, each stage's host and device ms per batch, the counts, the
+    POS scale's range and the peak; the table against SWEEP_COLUMNS."""
+    from gan_control_torch.data.dataframe import read_table
+
+    table_path = root / f"attributes_aligned_{detector}.npz"
+    lines = run_cli("gan_control_torch.make_attributes_df",
+                    ["--model_dir", str(model_dir), "--batch_size", str(SWEEP_BATCH), "--number_of_samples",
+                     str(ALIGN_ROWS), "--save_path", str(table_path), "--align_3d", "--fan_weights",
+                     str(paths["fan"]), "--detector", detector, "--detector_weights", str(paths[detector]),
+                     "--depth_weights", str(paths["depth"])],
+                    root / f"make_attributes_df_aligned_{detector}.log", 900)
+    text = "\n".join(lines)
+    m = re.search(r"swept (\d+) rows in ([\d.]+) s \(([\d.]+) rows/s", text)
+    if not m:
+        fail(f"aligned make_attributes_df ({detector}) logged no sweep line")
+    steady = re.search(r"after the first batch: (\d+) rows in ([\d.]+) s \(([\d.]+) rows/s", text)
+    if not steady:
+        fail(f"aligned make_attributes_df ({detector}) logged no rate after its first batch")
+    rate = float(steady[3])
+    log(f"alignment sweep {detector}: make_attributes_df --align_3d --batch_size {SWEEP_BATCH} "
+        f"--number_of_samples {ALIGN_ROWS}: {m[1]} rows in {m[2]} s = {m[3]} rows/s (its loop, the first "
+        f"batch's warm-up and the writes included); after the first batch {steady[1]} rows in {steady[2]} s "
+        f"= {rate:.2f} rows/s; phase 10's unaligned sweep "
+        + ("not run" if unaligned is None else f"{unaligned:.2f} rows/s ({unaligned / rate:.1f}x)"))
+    for name, host, dev in re.findall(r"stage (.+?): host ([\d.]+) ms/batch, device (\S+) ms/batch", text):
+        log(f"alignment sweep {detector} stage {name}: host {host} ms/batch, device {dev} ms/batch "
+            f"(batches 2-{ALIGN_ROWS // SWEEP_BATCH})")
+    for name, total, per in re.findall(r"count (.+?): (\S+) in \d+ batches, ([\d.]+) per image", text):
+        log(f"alignment sweep {detector} count {name}: {total} in batches 2-{ALIGN_ROWS // SWEEP_BATCH} "
+            f"({per} per image)")
+    for pattern in (r"range POS scale: .*", r"peak memory .*"):
+        hit = re.search(pattern, text)
+        log(f"alignment sweep {detector}: " + (hit[0] if hit else f"no {pattern[:15]!r} line"))
+        if not hit:
+            fail("the aligned sweep logged no POS scale or peak memory")
+    warned = sum("alignment WARNING" in ln for ln in lines)
+    log(f"alignment sweep {detector}: {warned} detector warnings (misses and boxes without a crop window)")
+    table = read_table(table_path)
+    if list(table) != list(SWEEP_COLUMNS):
+        fail(f"aligned sweep columns {list(table)}, expected {list(SWEEP_COLUMNS)}")
+    for name, shape in SWEEP_COLUMNS.items():
+        if table[name].shape != (ALIGN_ROWS, *shape) or not np.isfinite(table[name]).all():
+            fail(f"aligned sweep column {name}: shape {table[name].shape} or not finite")
+    log(f"alignment sweep {detector} table: {ALIGN_ROWS} rows, the columns and shapes of SWEEP_COLUMNS, finite")
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    err, scale = max_err(got.cpu(), want)
+    return err / max(scale, 1e-12)
+
+
+def held(label: str, errs: dict, rtol: float) -> None:
+    log(f"alignment card vs cpu: {label}: error / max " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol {rtol})")
+    if max(errs.values()) > rtol:
+        fail(f"alignment {label}: card and CPU disagree")
+
+
+def alignment_card_vs_cpu(paths: dict) -> None:
+    """Each net card against CPU (f32, TF32 off, the same checkpoints and
+    inputs) to PREDICTOR_RTOL of each output's largest entry; then the
+    discrete results, compared where the decision margin exceeds the nets'
+    measured error: the detector's best box, FAN's argmax landmarks and the
+    aligned crops, with the number of flips."""
+    from gan_control_torch.alignment import align_u8_images, blazeface, depth, fan, sfd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images = smooth_images(ALIGN_PARITY_BATCH, 11).clamp(-1, 1)
+    u8 = torch.clamp((images * 0.5 + 0.5) * 255.0, 0, 255).to(torch.uint8)
+    with torch.no_grad():
+        sd = sfd.read_reference_state_dict(paths["sfd"])
+        det = {dev: sfd.make_sfd(sd, device=dev) for dev in ("cpu", "cuda")}
+        want, got = det["cpu"].heads(u8), det["cuda"].heads(u8.cuda())
+        errs = {}
+        for i, ((cw, rw), (cg, rg)) in enumerate(zip(want, got)):
+            errs[f"conf{i}"], errs[f"loc{i}"] = rel_err(cg, cw), rel_err(rg, rw)
+        held(f"S3FD heads at {images.shape[2]} px", errs, PREDICTOR_RTOL)
+        pw = torch.cat([F.softmax(c, 1)[:, 1].flatten(1) for c, _ in want], 1)
+        pg = torch.cat([F.softmax(c, 1)[:, 1].flatten(1) for c, _ in got], 1).cpu()
+        p_err = float((pw - pg).abs().max())
+        dw, dg = det["cpu"].detect(u8), det["cuda"].detect(u8.cuda())
+        flips = 0
+        for w, g in zip(dw, dg):
+            s = np.sort(w[:, 4])[::-1]
+            margin = float(s[0] - s[1]) if len(s) > 1 else float("inf")
+            same = len(g) == len(w) == 0 or (len(g) > 0 and len(w) > 0 and np.allclose(
+                g[np.argmax(g[:, 4])], w[np.argmax(w[:, 4])], rtol=1e-3, atol=1e-3))
+            if not same:
+                flips += 1
+                if margin > p_err:
+                    fail(f"S3FD best box differs where its score margin {margin:.3g} exceeds the error {p_err:.3g}")
+        log(f"alignment card vs cpu: S3FD kept boxes cpu {[len(w) for w in dw]} card {[len(g) for g in dg]}; "
+            f"best box flips {flips} of {len(dw)} (face probability error {p_err:.3g}; a flip is allowed "
+            f"only where the best two scores lie within it)")
+
+        sd = blazeface.read_reference_state_dict(paths["blazeface"])
+        bz = {dev: blazeface.make_blazeface(sd, device=dev) for dev in ("cpu", "cuda")}
+        crops, _ = bz["cpu"].preprocess(u8.numpy())
+        (bw, sw), (bg, sg) = bz["cpu"].raw(crops), bz["cuda"].raw(crops)
+        held("BlazeFace raw boxes and scores",
+             {"boxes": rel_err(torch.from_numpy(bg), torch.from_numpy(bw)),
+              "scores": rel_err(torch.from_numpy(sg), torch.from_numpy(sw))}, PREDICTOR_RTOL)
+
+        sd = fan.read_reference_state_dict(paths["fan"])
+        fans = {dev: fan.make_fan(state_dict=sd, device=dev) for dev in ("cpu", "cuda")}
+        center, scale = fan.box_to_center_scale((0.0, 0.0, images.shape[2], images.shape[1]))
+        crop = fan.crop((images * 0.5 + 0.5).permute(0, 3, 1, 2), center, scale)
+        hw, hg = fans["cpu"].net(crop), fans["cuda"].net(crop.cuda())
+        held("FAN heatmaps (4 modules)", {f"module{i}": rel_err(g, w) for i, (w, g) in enumerate(zip(hw, hg))},
+             PREDICTOR_RTOL)
+        hm_err = float((hw[-1] - hg[-1].cpu()).abs().max())
+        flat_w, flat_g = hw[-1].flatten(2), hg[-1].cpu().flatten(2)
+        iw, ig = flat_w.argmax(-1), flat_g.argmax(-1)
+        gap = flat_w.max(-1).values - flat_w.gather(-1, ig[..., None])[..., 0]
+        flips = int((iw != ig).sum())
+        if bool(((iw != ig) & (gap > hm_err)).any()):
+            fail("FAN's argmax landmark differs where the heatmap margin exceeds the error")
+        log(f"alignment card vs cpu: FAN argmax landmarks: {flips} flips of {iw.numel()} (heatmap error "
+            f"{hm_err:.3g}; a flip is allowed only where the two peaks lie within it)")
+
+        sd = depth.read_reference_state_dict(paths["depth"])
+        coords = fan.decode_heatmaps(hw[-1]) * 4.0
+        zw = depth.make_depth(state_dict=sd, device="cpu").predict(crop, coords)
+        zg = depth.make_depth(state_dict=sd, device="cuda").predict(crop.cuda(), coords.cuda())
+        held("depth net (3, 8, 36, 3)", {"z": rel_err(zg, zw)}, PREDICTOR_RTOL)
+
+        lw, lg = fans["cpu"].get_landmarks(images), fans["cuda"].get_landmarks(images.cuda())
+        aw, _ = align_u8_images(u8.numpy(), lw)
+        ag, _ = align_u8_images(u8.numpy(), lg)
+        equal_lm = [bool(np.array_equal(a, b)) for a, b in zip(lw, lg)]
+        differ = [not np.array_equal(a, b) for a, b in zip(aw, ag)]
+        if any(d and e for d, e in zip(differ, equal_lm)):
+            fail("aligned crops differ for equal landmarks")
+        log(f"alignment card vs cpu: landmarks equal in {sum(equal_lm)} of {len(lw)} images; aligned crops "
+            f"differ in {sum(differ)} (only where the landmarks did)")
+
+
+def alignment_phase(build_root: Path, model_dir: Path, unaligned: float | None,
+                    seen: Counter, counts: dict) -> None:
+    """Phase 19: reference-layout checkpoints; the sweep's command line with
+    ``--align_3d``, once per detector; one aligned batch in-process with
+    its launches; the nets card against CPU."""
+    import argparse
+    import shutil
+
+    from gan_control_torch.inference.extract_controls import ControlExtractor
+    from gan_control_torch.inference.inference import Inference
+    from gan_control_torch.make_attributes_df import make_align_fn_of
+
+    root = build_root / "alignment"
+    if root.exists():
+        shutil.rmtree(root)
+    with Phase("alignment checkpoints"):
+        paths = write_alignment_checkpoints(root)
+        log("alignment checkpoints: " + ", ".join(f"{n} {p.stat().st_size / 2**20:.1f} MiB"
+                                                   for n, p in paths.items()))
+    for detector in ALIGN_DETECTORS:
+        with Phase(f"alignment sweep {detector}"):
+            aligned_sweep(detector, model_dir, paths, root, unaligned)
+    with Phase("alignment batch in-process"):
+        inf = Inference(model_dir, device="cuda")
+        ns = argparse.Namespace(fan_weights=str(paths["fan"]), detector="sfd",
+                                detector_weights=str(paths["sfd"]), depth_weights=str(paths["depth"]))
+        align_fn = make_align_fn_of(ns, inf.device)
+        extractor = ControlExtractor(inf.config["training_config"], align_fn=align_fn, align_3d=True,
+                                     device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def batch():
+            z = torch.randn((SWEEP_BATCH, 512), generator=gen, device="cuda")
+            img, _, _ = inf.gen_batch(batch_size=SWEEP_BATCH, normalize=False, latent=z, generator=gen)
+            return extractor.extract_tensors(img)
+
+        quiet = logging.getLogger("gan_control_torch.alignment")
+        level = quiet.level
+        quiet.setLevel(logging.ERROR)  # the command lines above logged each box without a crop window
+        try:
+            batch()
+            got = launches_of(batch, seen)
+        finally:
+            quiet.setLevel(level)
+        n_map, n_conv, n_up = g_counts(inf.model)
+        want = row(n_map + n_conv, 0, n_up, 0)
+        log(f"alignment batch: launches {got}, expected {want} (the G's; the alignment nets and the "
+            f"predictors launch none of the port's kernels)")
+        if got != want:
+            fail("the aligned sweep batch's launches differ from the derived counts")
+        add_counts(counts, got)
+        del extractor, align_fn, inf
+        torch.cuda.empty_cache()
+    with Phase("alignment card vs cpu"):
+        alignment_card_vs_cpu(paths)
+
+
+def projection_card_vs_cpu() -> None:
+    """Three projector steps of a size-32 model (``max_channels`` 32, noise
+    weights 0.3) with LPIPS at random init, on the card and on the CPU from
+    the same target, start, noises and draws, f32 with TF32 off: the latent
+    and the noises to PROJ_PARITY_RTOL of each one's largest entry."""
+    from gan_control_torch.models.factory import build_generator, build_group_spec
+    from gan_control_torch.projection import Projector, make_lpips
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = json.loads((CONFIGS / "ffhq.json").read_text())
+    config["model_config"].update(size=32, max_channels=32, mixed_precision=False)
+    g0 = build_generator(config, build_group_spec(config), device="cpu", seed=0)
+    with torch.no_grad():
+        for m in g0.modules():
+            if type(m).__name__ == "NoiseInjection":
+                m.weight.fill_(0.3)
+    rng = np.random.default_rng(13)
+    target = smooth_images(1, 12, px=32).clamp(-1, 1)
+    latent = torch.from_numpy(rng.standard_normal((1, g0.n_latent, 512)).astype(np.float32) * 0.3)
+    noises = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in g0.noise_shapes(1)]
+    draws = [torch.from_numpy(rng.standard_normal(latent.shape).astype(np.float32))
+             for _ in range(PROJ_PARITY_STEPS)]
+    out = []
+    for dev in ("cpu", "cuda"):
+        g = copy.deepcopy(g0).to(dev).requires_grad_(False)
+        proj = Projector(lambda w, ns, _g=g: _g([w], input_is_latent=True, noise=ns)[0],
+                         make_lpips(seed=1, device=dev), target.to(dev), latent.to(dev), g.noise_shapes(1),
+                         steps=PROJ_PARITY_STEPS, latent_std=0.7, mse_weight=0.1, noises_init=noises,
+                         draws=draws)
+        losses = [float(proj.step(i)[0]) for i in range(PROJ_PARITY_STEPS)]
+        out.append((losses, [t.detach().cpu() for t in (proj.latent, *proj.noises)]))
+    (cpu_losses, want), (card_losses, got) = out
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    log(f"projection card vs cpu: {PROJ_PARITY_STEPS} steps at size 32, f32 TF32 off, the same draws: losses "
+        f"cpu {[round(x, 6) for x in cpu_losses]} card {[round(x, 6) for x in card_losses]}; latent "
+        f"error / max {errs[0]:.2e}, noises worst {max(errs[1:]):.2e} (tol {PROJ_PARITY_RTOL})")
+    if max(errs) > PROJ_PARITY_RTOL or not all(bool(torch.isfinite(t).all()) for t in got):
+        fail("projection: card and CPU disagree")
+
+
+def projection_phase(build_root: Path, model_dir: Path, seen: Counter, counts: dict) -> None:
+    """Phase 20: ``python -m gan_control_torch.project`` on the FFHQ-512
+    directory (batch 1, a model-generated target, random LPIPS); in-process,
+    ``get_avg_latent`` and PROJ_COUNTED_STEPS steps with their launches
+    against the derived counts, the step's ms, device-busy share and peak;
+    card against CPU at size 32."""
+    import shutil
+
+    from gan_control_torch.inference.inference import Inference
+    from gan_control_torch.projection import Projector, get_avg_latent, make_lpips
+    from gan_control_torch.projection.projection import downsample_to_256
+
+    root = build_root / "projection"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    with Phase("projection command line"):
+        t0 = time.perf_counter()
+        lines = run_cli("gan_control_torch.project", ["--model_dir", str(model_dir), "--out", str(root / "out"),
+                                                      "--steps", str(PROJ_STEPS)], root / "project.log", 900)
+        wall = time.perf_counter() - t0
+        text = "\n".join(lines)
+        m = re.search(r"projection: loss (\S+) \(step (\d+)\) -> (\S+) \(step (\d+)\), (\d+) steps in ([\d.]+) s = "
+                      r"([\d.]+) ms/step", text)
+        peak = re.search(r"peak memory ([\d.]+) GiB", text)
+        if not m or not peak or "no LPIPS weights" not in text:
+            fail("project logged no result, peak or random-LPIPS line")
+        hist = json.loads((root / "out" / "history.json").read_text())
+        w = np.load(root / "out" / "projected_w_plus.npy")
+        size = json.loads((model_dir / "args.json").read_text())["model_config"]["size"]
+        n_latent = 2 * int(math.log2(size)) - 2
+        if [h["step"] for h in hist] != list(range(0, PROJ_STEPS, 50)) or w.shape != (1, n_latent, 512) \
+                or not np.isfinite(w).all() or not (root / "out" / "target_vs_projection.jpg").exists():
+            fail(f"project's artifacts: history steps {[h['step'] for h in hist]}, w+ {w.shape}")
+        log(f"projection command line: {m[5]} steps at batch 1, {size} px (random LPIPS, as the command says): "
+            f"{m[7]} ms/step ({m[6]} s, the command {wall:.1f} s with start-up); loss {m[1]} at step {m[2]} -> "
+            f"{m[3]} at step {m[4]}; peak {peak[1]} GiB; w+ {w.shape}")
+
+    with Phase("projection in-process"):
+        inf = Inference(model_dir, device="cuda")
+        g = inf.model
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        img01, _, _ = inf.gen_batch(batch_size=1, generator=gen)
+        target = downsample_to_256(img01 * 2.0 - 1.0)
+        lpips = make_lpips(seed=1, device="cuda")
+        avg = {}
+
+        def mean_w():
+            avg["w"], avg["std"] = get_avg_latent(g.map_latent, torch.Generator(device="cuda").manual_seed(2))
+
+        n_map, n_conv, n_up = g_counts(g)
+        got = launches_of(mean_w, seen)
+        log(f"projection get_avg_latent (10000 z): launches {got}, expected {row(n_map, 0, 0, 0)}")
+        if got != row(n_map, 0, 0, 0):
+            fail("get_avg_latent's launches differ from the derived counts")
+        add_counts(counts, got)
+        latent = avg["w"][None, None].expand(1, g.n_latent, 512).contiguous()
+        total = PROJ_COUNTED_STEPS + 1 + 2 * PROJ_TIMED_STEPS
+        proj = Projector(lambda w_, ns: g([w_], input_is_latent=True, noise=ns)[0], lpips, target, latent,
+                         g.noise_shapes(1), steps=total, latent_std=avg["std"], mse_weight=0.1,
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+        want = row(n_conv, n_conv, n_up, n_up)
+        for i in range(PROJ_COUNTED_STEPS):
+            got = launches_of(lambda: proj.step(i), seen)
+            if got != want:
+                fail(f"projector step {i}: launches {got}, expected {want}")
+            add_counts(counts, got)
+        log(f"projection step: launches {want} each of {PROJ_COUNTED_STEPS} steps, as derived (StyledConvs "
+            f"{n_conv}: fused_bias_act and its gradient; ToRGB skips {n_up}: blur2x_up and blur2x_down; the "
+            f"mapping does not run on w+)")
+        steps = iter(range(PROJ_COUNTED_STEPS, total))
+        torch.cuda.reset_peak_memory_stats()
+        times = synced_ms(lambda: proj.step(next(steps)), PROJ_TIMED_STEPS)
+        med = statistics.median(times)
+        log(f"projection step (batch 1, {str(g.dtype)[6:]} synthesis at {g.size} px, LPIPS at {min(g.size, 256)} px f32): median "
+            f"{med:.2f} ms over {len(times)} synced steps {[round(t, 2) for t in times]}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_phase("projection step", lambda: proj.step(next(steps)), med)
+        del proj, lpips, inf, g
+        torch.cuda.empty_cache()
+    with Phase("projection card vs cpu"):
+        projection_card_vs_cpu()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3009,12 +3420,27 @@ def main() -> None:
         fail(f"the AFHQ and MetFaces launch hooks disagree with the counters {counts5}")
     merge_totals(totals, totals5)
 
+    # 19-20. alignment in the phase-2a sweep, and projection
+    seen6: Counter = Counter()
+    counts6: dict = {n: 0 for n in KERNELS}
+    model_dir = build_root / "phase2" / "controller" / "generator"
+    unaligned = re.search(r"\(([\d.]+) rows/s", (build_root / "make_attributes_df.log").read_text())
+    alignment_phase(build_root, model_dir, float(unaligned[1]) if unaligned else None, seen6, counts6)
+    projection_phase(build_root, model_dir, seen6, counts6)
+    with Phase("alignment and projection kernels"):
+        totals6 = train_kernel_phase(seen6, "alignment and projection", both_dtypes=False)
+    for n in KERNELS:
+        log(f"alignment and projection totals {n}: launches {counts6[n]} " + totals_text(totals6[n]))
+    if counts6 != {n: sum(c for key, c in seen6.items() if key[0] == n) for n in KERNELS} or counts6["blur_sep"]:
+        fail(f"the alignment and projection launch hooks disagree with the counters {counts6}")
+    merge_totals(totals, totals6)
+
     entries = []
     for n, (route, src, replaces) in KERNELS.items():
         tot = totals[n]
         entries.append({
             "name": n, "route": route, "source": src, "replaces": replaces,
-            "launches": counts[n] + counts2[n] + counts3[n] + counts4[n] + counts5[n],
+            "launches": counts[n] + counts2[n] + counts3[n] + counts4[n] + counts5[n] + counts6[n],
             "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],

@@ -46,7 +46,8 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding, self.dilation,
+                        self.groups)
 
 
 class Linear(nn.Linear):

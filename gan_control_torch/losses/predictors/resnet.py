@@ -78,14 +78,14 @@ def stem(x: torch.Tensor, conv1: nn.Module, bn1: nn.Module) -> torch.Tensor:
 
 
 class ResNetTrunk(nn.Module):
-    """7x7 stem + ``len(layers)`` stages; ``forward`` returns every stage's
-    output (NCHW)."""
+    """7x7 stem (``in_channels`` in) + ``len(layers)`` stages; ``forward``
+    returns every stage's output (NCHW)."""
 
-    def __init__(self, layers=(3, 4, 6, 3), bottleneck: bool = True):
+    def __init__(self, layers=(3, 4, 6, 3), bottleneck: bool = True, in_channels: int = 3):
         super().__init__()
         block = Bottleneck if bottleneck else BasicBlock
         self.num_stages = len(layers)
-        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
         inplanes = 64
         for i, n in enumerate(layers):

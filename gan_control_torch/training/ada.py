@@ -26,7 +26,8 @@ Dtypes: every op runs in the images' dtype (bf16 under
 cannot address a 1549-px frame to a fraction of a pixel (8 bits of
 mantissa), so the sample runs in f32 on an explicit cast of the upsampled
 images and is cast back; the JAX package computes the coordinates in f32
-and the bilinear weights and products in bf16.
+and the bilinear weights and products in bf16. Float64 images sample in
+float64 (a reference run).
 """
 
 from __future__ import annotations
@@ -190,8 +191,10 @@ def _fold_reflect(u: torch.Tensor, n: int) -> torch.Tensor:
 
 def _grid_sample_zeros(img: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     """Bilinear sample of NCHW ``img`` at normalised [B, H, W] coordinates
-    (``align_corners=False``, zeros outside), in f32 (module docstring)."""
-    out = F.grid_sample(img.float(), torch.stack([gx, gy], dim=-1), mode="bilinear",
+    (``align_corners=False``, zeros outside), in f32 or wider (module
+    docstring)."""
+    out = F.grid_sample(img.to(torch.promote_types(img.dtype, torch.float32)),
+                        torch.stack([gx, gy], dim=-1), mode="bilinear",
                         padding_mode="zeros", align_corners=False)
     return out.to(img.dtype)
 
@@ -212,10 +215,10 @@ def apply_affine(img: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
     # the output grid in the original frame, mapped through g^-1, then
     # renormalised to the padded frame
-    dev = img.device
-    x_lin = torch.linspace(-2 * pad / w - 1, 2 * (w_p - pad) / w - 1, w2, device=dev)
-    y_lin = torch.linspace(-2 * pad / h - 1, 2 * (h_p - pad) / h - 1, h2, device=dev)
-    g_inv = torch.linalg.inv(g.float())[:, :2, :]  # [B, 2, 3]
+    dev, dt = img.device, torch.promote_types(img.dtype, torch.float32)
+    x_lin = torch.linspace(-2 * pad / w - 1, 2 * (w_p - pad) / w - 1, w2, device=dev, dtype=dt)
+    y_lin = torch.linspace(-2 * pad / h - 1, 2 * (h_p - pad) / h - 1, h2, device=dev, dtype=dt)
+    g_inv = torch.linalg.inv(g.to(dt))[:, :2, :]  # [B, 2, 3]
     xs, ys = x_lin[None, None, :], y_lin[None, :, None]
 
     def warp(j: int) -> torch.Tensor:

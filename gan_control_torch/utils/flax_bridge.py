@@ -117,6 +117,27 @@ def predictor_state_dict_from_flax(loss_name: str, tree: Mapping[str, Any]) -> d
     return predictor_module(loss_name).state_dict_from_flax(tree)
 
 
+# the alignment and projection nets whose JAX parameter trees the bridge reads
+NET_MODULES = {
+    "fan": "gan_control_torch.alignment.fan",
+    "depth": "gan_control_torch.alignment.depth",
+    "sfd": "gan_control_torch.alignment.sfd",
+    "blazeface": "gan_control_torch.alignment.blazeface",
+    "lpips": "gan_control_torch.projection.lpips",
+}
+
+
+def net_state_dict_from_flax(net: str, tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX parameter tree of an alignment or projection net (``fan``,
+    ``depth``, ``sfd``, ``blazeface`` or ``lpips``; ``init_params`` or
+    ``convert_torch_weights`` output, as numpy) -> the port net's
+    ``state_dict``, in the reference checkpoint's names: the inverse of the
+    JAX ``convert_torch_weights``."""
+    import importlib
+
+    return importlib.import_module(NET_MODULES[net]).state_dict_from_flax(tree)
+
+
 def inception_state_dict_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """The JAX ``InceptionV3Features`` parameter tree (``init_params`` or
     ``convert_torch_weights`` output, as numpy) -> the port's

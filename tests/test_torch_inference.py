@@ -305,6 +305,11 @@ afhq_metfaces = {"gan_control_torch.losses.predictors.dogfacenet", "gan_control_
                  "gan_control_torch.losses.predictors.imagenet_cls", "gan_control_torch.training.ada",
                  "gan_control_torch.utils.transfer"}
 assert afhq_metfaces <= set(mods), sorted(afhq_metfaces - set(mods))
+align_project = {f"gan_control_torch.alignment.{m}" for m in (
+    "align_math", "fan", "depth", "sfd", "blazeface", "folder", "timing")} | {
+    "gan_control_torch.alignment", "gan_control_torch.projection", "gan_control_torch.projection.lpips",
+    "gan_control_torch.projection.projection", "gan_control_torch.project"}
+assert align_project <= set(mods), sorted(align_project - set(mods))
 assert "matplotlib" not in sys.modules
 assert len(mods) >= 50, mods
 import torch

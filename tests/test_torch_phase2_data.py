@@ -274,15 +274,30 @@ def test_control_extractor_matches_jax():
     for k in want:
         assert got[k].dtype == np.float32
         _close(got[k], want[k], 1e-4)
-    with pytest.raises(NotImplementedError):
-        TExtractor(tc, align_3d=True, device="cpu")
+    # aligned inputs (each package's alignment without FAN weights: the bicubic
+    # 224 resize) before the R-Net, whose center_crop align_3d clears
+    from gan_control_tpu.alignment import make_align_fn as j_make_align_fn
+
+    from gan_control_torch.alignment import make_align_fn as t_make_align_fn
+
+    jext = JExtractor(tc, align_fn=j_make_align_fn(None), rng=jax.random.PRNGKey(1), align_3d=True)
+    text = TExtractor(tc, align_fn=t_make_align_fn(None), align_3d=True, device="cpu")
+    assert text.models["recon_3d_loss"].center_crop is None
+    for loss, (_, _, params) in jext.mods.items():
+        sd = predictor_state_dict_from_flax(loss, jax.tree_util.tree_map(np.asarray, params))
+        text.models[loss].load_state_dict(sd, strict=True)
+    want, got = jext.extract(images), text.extract(images)
+    assert list(got) == list(want)
+    for k in want:
+        _close(got[k], want[k], 1e-4)
 
 
 def test_sweep_command_line_matches_the_jax_one(tmp_path, monkeypatch):
     """The port's ``make_attributes_df`` on a JAX-written phase-1 directory
     with Hopenet enabled: the JAX command line's columns, cell types and
     shapes, in .pkl and .npz alike; ``latents_w`` is the port G's mapping
-    of ``latents``; alignment flags raise."""
+    of ``latents``; with ``--align_3d`` and no FAN weights the JAX command
+    line's columns too."""
     import make_attributes_df as jcli
 
     from gan_control_torch import make_attributes_df as tcli
@@ -315,5 +330,16 @@ def test_sweep_command_line_matches_the_jax_one(tmp_path, monkeypatch):
     with torch.no_grad():
         w = inf.model.map_latent(torch.from_numpy(npz["latents"])).numpy()
     _close(npz["latents_w"], w, 1e-6)
-    with pytest.raises(NotImplementedError):
-        tcli.main(common + ["--save_path", str(tmp_path / "x.npz"), "--align_3d"])
+    # --align_3d without FAN weights: the bicubic fallback's columns, as the JAX command line's
+    monkeypatch.setattr(sys, "argv", [
+        "make_attributes_df.py", "--model_dir", str(model_dir), "--batch_size", "2",
+        "--number_of_samples", "2", "--save_path", str(tmp_path / "jax_aligned.pkl"), "--no_shard",
+        "--align_3d"])
+    jcli.main()
+    tcli.main(common[:4] + ["--number_of_samples", "2", "--device", "cpu", "--align_3d",
+                            "--save_path", str(tmp_path / "aligned.npz")])
+    want = pd.read_pickle(tmp_path / "jax_aligned.pkl")
+    got = tdf.read_table(tmp_path / "aligned.npz")
+    assert list(got) == list(want.columns)
+    for col in want.columns:
+        assert got[col].shape == np.stack(want[col]).shape and np.isfinite(got[col]).all()
