@@ -190,7 +190,7 @@ seconds:
     derived counts; each net card against CPU (f32, TF32 off) and the
     discrete results (best box, argmax landmarks, aligned crops) where the
     decision margin exceeds the nets' error, with the flips counted;
-20. projection: ``python -m gan_control_torch.project --steps 200`` on the
+20. projection: ``python -m gan_control_torch.project --steps 100`` on the
     same directory (batch 1, a model-generated target, random LPIPS): ms
     per step, the loss at the first and last logged step, the peak and its
     three artifacts; in-process ``get_avg_latent`` and three projector
@@ -201,12 +201,36 @@ seconds:
     from the same draws; then every (kernel, shape, dtype) that phases
     19-20 launched in-process, forward and backward against the plain
     version, with its times and bound;
-21. the script's total seconds; one JSON line of per-kernel numbers over
+21. data parallelism across processes (ranks started as torchrun starts
+    them, by ``torch.multiprocessing`` or ``torchrun --standalone``; a rank
+    that fails fails the script): (a) phase 9's size-32 model (f32, TF32
+    off) with ADA adaptive, a small contrastive net and path length, each
+    of the four steps from one state on two ranks sharing the card over
+    gloo and on one rank over NCCL, each gradient against the one-process
+    card step at the full batch (TRAIN_PARITY_RTOL); (b) ``train_generator --iters 3``
+    (its ``main``) on configs/ffhq.json at full width, batch 16 over two
+    ranks sharing the card (gloo, bf16, the six-loss battery): the ranks'
+    parameters bitwise equal, each rank's launches per step against
+    ``expected_step_counts``, each step's collectives (calls, payload MB,
+    ms between syncs), the plain iterations' ms, the peaks; every (kernel,
+    shape, dtype) the two ranks launched, forward and backward against the
+    plain version, with its times and bound; (c) ``torchrun
+    --nproc_per_node=2 -m gan_control_torch.make_attributes_df`` (160 rows)
+    on phase 10's directory made f32 (``mixed_precision`` off): every row
+    of every column against the same sweep replayed in this script at the
+    ranks' batch, and every column but DIST_BATCH_SENSITIVE against the
+    one-process sweep; ArcFace and DEX on fixed images at the batch of one
+    process against two halves, in f32 as the sweep runs, in f32 with
+    cuDNN off and in float64 (the float64 shift bounded); (d) ``torchrun --nproc_per_node=2 -m
+    gan_control_torch.train_controller --iters 20`` against one process in
+    this script: the head and the logged metrics;
+22. the script's total seconds; one JSON line of per-kernel numbers over
     ``train(5)``, the phase-2 launches of phases 10-12, the serving
     launches of phase 15, the evaluation launches of phase 16, the AFHQ and
-    MetFaces launches of phase 18 and the alignment and projection launches
-    of phases 19-20 (launches, times and bounds summed over the six), then
-    the card's line and the result line.
+    MetFaces launches of phase 18, the alignment and projection launches
+    of phases 19-20 and the two ranks' launches of phase 21b (launches,
+    times and bounds summed over the seven), then the card's line and the
+    result line.
 
 Times, per launch at each shape and summed over a path's launches:
 "host-rate" is the mean over back-to-back eager calls between two CUDA
@@ -2970,7 +2994,7 @@ def afhq_metfaces_phase(build_root: Path, ffhq_run: Path, metfaces_folder: Path)
 ALIGN_ROWS = 160  # four batches of SWEEP_BATCH per command line
 ALIGN_DETECTORS = ("sfd", "blazeface")
 ALIGN_PARITY_BATCH = 2
-PROJ_STEPS = 200
+PROJ_STEPS = 100  # cut from 200 for phase 21 (PERF.md §4)
 PROJ_COUNTED_STEPS = 3
 PROJ_TIMED_STEPS = 10
 PROJ_PARITY_STEPS = 3
@@ -3320,6 +3344,552 @@ def projection_phase(build_root: Path, model_dir: Path, seen: Counter, counts: d
         projection_card_vs_cpu()
 
 
+# ---------------------------------------------------------------------------
+# data parallelism across processes (this slice)
+# ---------------------------------------------------------------------------
+
+DIST_ITERS = 3  # train_generator over two ranks; iteration 0 runs all four steps
+DIST_PLAIN_ITERS = (1, 2, 3)  # d_step + g_step only
+DIST_SWEEP_ROWS = 160  # four batches of SWEEP_BATCH
+DIST_CTRL_ITERS = 20
+DIST_CTRL_EVAL = 10  # min_evaluate_interval of the two-rank controller run
+# the two-rank sweep against the one-process sweep of the same directory in
+# f32 (the same f32 nets at batch 20 against 40 on the card): as the CPU test
+# bounds them
+DIST_LATENT_RTOL = 1e-5
+DIST_PREDICTOR_RTOL = 1e-4
+# the sweep's columns whose random-init nets move with the batch size alone
+# in f32 on the card (ArcFace's embedding by up to 0.824 of its largest
+# entry, DEX's age by 0.0246, at batch 20 against 40 in one process on an
+# H100 80GB HBM3 at 700 W): column -> loss block. They are held to the
+# sweep replayed at the ranks' batch, not to the one-process sweep, and
+# only while the same nets on fixed images move by no more than
+# DIST_F64_BATCH_RTOL between the two batch sizes in float64, where
+# rounding is 2**29 times smaller than in f32 and an op that couples rows
+# would move them as much as in f32
+DIST_BATCH_SENSITIVE = {"arcface_emb": "embedding_loss", "age": "age_loss"}
+DIST_F64_BATCH_RTOL = 1e-6
+# the two-rank controller after DIST_CTRL_ITERS steps against one process,
+# relative to each tensor's largest entry: each step's gradients agree to
+# 1e-5 (the CPU test's bound on one step), and Adam with b1 = 0 divides each
+# gradient by its own running RMS, so a gradient's relative error passes
+# into its update whole and the 20 updates' errors add
+DIST_CTRL_RTOL = 1e-4
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(rank: int, fn, world: int, local_world: int, port: int, *args) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(local_world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    # every rank is on this machine, which may have no network: NCCL's
+    # bootstrap goes over the loopback interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    fn(rank, *args)
+
+
+def spawn_ranks(fn, world: int, *args) -> None:
+    """``fn(rank, *args)`` in ``world`` processes on this machine's one card,
+    each with torchrun's environment (so the ranks share the card over
+    gloo; one rank runs NCCL). A rank that fails raises here."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_rank_entry, args=(fn, world, world, free_port(), *args), nprocs=world,
+                       start_method="spawn")
+
+
+class SmallNet(torch.nn.Module):
+    """A small frozen contrastive "predictor" (conv, mean pool, linear)."""
+
+    def __init__(self, seed: int = 5):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.conv = torch.nn.Conv2d(3, 8, 3, padding=1)
+        self.fc = torch.nn.Linear(8, 16)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+
+    def forward(self, x):
+        y = torch.relu(self.conv(x.to(self.conv.weight.dtype).permute(0, 3, 1, 2)))
+        return self.fc(y.mean(dim=(2, 3))).float()
+
+
+def parity_steps(rank: int, world: int, device) -> dict:
+    """Phase 21a's steps: each of the four steps from one size-32 state
+    (configs/ffhq.json at size 32, max_channels 64, batch 16 in its 7-group
+    arrangement, f32, TF32 off, injection-noise weights 0.3, ADA adaptive
+    from p 0.3, a SmallNet contrastive loss on the ``id`` group, style
+    mixing in d_step and g_reg_step) on the rank's rows of seeded inputs.
+    Each step's gradients (on the CPU) and metrics, and d_step's ``ada_p``.
+    Each step starts from the same state, as phase 9's do: after a first
+    Adam step (b1 = 0, an update of about ``lr * sign(g)``) a gradient entry
+    that cuDNN's nondeterministic algorithms put on either side of 0 moves
+    its parameter by 2 lr, so on the card steps in a row do not repeat even
+    in one process, and the next step's gradients move by percents of
+    their largest entries."""
+    from gan_control_torch.losses.contrastive import ContrastiveConfig, pairwise_sq_l2
+    from gan_control_torch.models.factory import build_discriminator, build_generator, build_group_spec
+    from gan_control_torch.training import ada
+    from gan_control_torch.training import train_step as ts
+    from gan_control_torch.training.state import init_gan_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = json.loads((CONFIGS / "ffhq.json").read_text())
+    config["model_config"].update(size=32, max_channels=64, mixed_precision=False)
+    tc = config["training_config"]
+    spec = build_group_spec(config)
+    b = tc["batch"]
+    cfg = ts.TrainStepConfig(batch=b, mini_batch=tc["mini_batch"], ada_enabled=True)
+    g0 = build_generator(config, spec, device=device, seed=0)
+    with torch.no_grad():
+        for m in g0.modules():
+            if type(m).__name__ == "NoiseInjection":
+                m.weight.fill_(0.3)
+    d0 = build_discriminator(config, device=device, seed=1)
+    rng = np.random.default_rng(7)
+
+    def rows(shape, scale=1.0):
+        full = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale)
+        n = shape[0] // world
+        return full[rank * n : (rank + 1) * n].to(device)
+
+    real = rows((b, 32, 32, 3), 0.5)
+    z_d, z_g = [rows((b, 512)), rows((b, 512))], [rows((b, 512))]
+    z_reg = [rows((b // 2, 512)), rows((b // 2, 512))]
+    ccfg = ContrastiveConfig(intermediate_weights=(), last_layer_weight=1.0, lower_thres=(),
+                             upper_thres=(), last_lower_thres=0.5, last_upper_thres=40.0,
+                             focus_on=("same_as_last_layer",))
+    battery = (ts.AttributeLossSpec(name="small_loss", group="id", cfg=ccfg,
+                                    feature_fn=lambda m, imgs: [m(imgs)], dist_fn=pairwise_sq_l2),)
+    nets = {"small_loss": SmallNet().to(device).requires_grad_(False)}
+    runs = {
+        "d_step": lambda st: ts.d_step(st, cfg, spec, real, z_d, augment_fn=ada.augment),
+        "d_reg_step": lambda st: ts.d_reg_step(st, cfg, real),
+        "g_step": lambda st: ts.g_step(st, cfg, spec, z_g, attr_losses=battery, predictors=nets,
+                                       augment_fn=ada.augment),
+        "g_reg_step": lambda st: ts.g_reg_step(st, cfg, z_reg),
+    }
+    out = {}
+    for kind, run in runs.items():
+        st = init_gan_state(copy.deepcopy(g0), copy.deepcopy(d0), tc)
+        st.ada_p = torch.tensor(0.3, device=device)
+        metrics = {k: float(v) for k, v in run(st).items()}
+        mod = st.discriminator if kind.startswith("d_") else st.generator
+        out[kind] = (metrics, {n: p.grad.detach().cpu() for n, p in mod.named_parameters()})
+    out["ada_p"] = out["d_step"][0]["ada_p"]
+    return out
+
+
+def parity_rank(rank: int, out_dir: str) -> None:
+    from gan_control_torch.utils import multihost
+    from gan_control_torch.utils.device import resolve_device
+
+    _, world = multihost.initialize()
+    res = parity_steps(rank, world, resolve_device(None))
+    res["backend"] = torch.distributed.get_backend()
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def params_digest(*modules) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for m in modules:
+        for k, v in m.state_dict().items():
+            h.update(k.encode())
+            h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def record_collectives(records: list):
+    """Hooks on the port's two collective primitives: each call's kind,
+    payload bytes (this rank's tensor) and ms between device syncs. Returns
+    a function that removes them."""
+    from gan_control_torch.utils import collectives
+
+    originals = {"_all_reduce_": collectives._all_reduce_, "_all_gather": collectives._all_gather}
+
+    def timed(name, fn):
+        def run(t, *a, **kw):
+            if t.is_cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, *a, **kw)
+            if t.is_cuda:
+                torch.cuda.synchronize()
+            records.append((name, t.numel() * t.element_size(), (time.perf_counter() - t0) * 1e3))
+            return out
+        return run
+
+    for name, fn in originals.items():
+        setattr(collectives, name, timed(name, fn))
+
+    def remove():
+        for name, fn in originals.items():
+            setattr(collectives, name, fn)
+
+    return remove
+
+
+def ffhq_rank(rank: int, out_dir: str, config_path: str) -> None:
+    """Phase 21b on one rank: ``train_generator --iters DIST_ITERS`` (its
+    ``main``, as torchrun runs it) with each step's launches and collectives
+    recorded; then the parameters' digest and plain iterations' ms."""
+    from gan_control_torch import train_generator
+    from gan_control_torch.data.datasets import synthetic_data_loader
+    from gan_control_torch.ops import kernels
+    from gan_control_torch.trainers import generator_trainer as gt
+    from gan_control_torch.utils import collectives
+    from gan_control_torch.utils.device import resolve_device
+
+    resolve_device(None)  # the rank's card becomes the current device
+    trainers = []
+    close = gt.GeneratorTrainer.close
+
+    def keep(self):
+        trainers.append(self)
+        close(self)
+
+    gt.GeneratorTrainer.close = keep
+    by_kind, restore = count_by_kind(gt)
+    records: list = []
+    by_step: dict[str, list] = {k: [] for k in gt.STEP_KINDS}
+    inner = {k: getattr(gt, k) for k in gt.STEP_KINDS}
+
+    def with_collectives(kind, fn):
+        def run(*a, **kw):
+            n = len(records)
+            out = fn(*a, **kw)
+            by_step[kind].append(records[n:])
+            return out
+        return run
+
+    for k in gt.STEP_KINDS:
+        setattr(gt, k, with_collectives(k, inner[k]))
+    remove = record_collectives(records)
+    seen: Counter = Counter()
+    remove_seen = install_launch_recorder(seen)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        kernels.reset_launch_counts()
+        train_generator.main(["--config_path", config_path, "--iters", str(DIST_ITERS)])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    finally:
+        remove_seen()
+        remove()
+        for k in gt.STEP_KINDS:
+            setattr(gt, k, inner[k])
+        restore()
+        gt.GeneratorTrainer.close = close
+    tr = trainers[0]
+    st = tr.state
+    expected = expected_step_counts(st.generator, st.discriminator, len(tr.spec.groups))
+    digest, step = params_digest(st.generator, st.discriminator, st.g_ema), st.step
+    real = tr._to_device(next(synthetic_data_loader(tr.step_cfg.batch, tr.mc["size"], seed=1, shard_index=rank,
+                                                    num_shards=tr.world)))
+    plain = []
+    for i in DIST_PLAIN_ITERS:
+        torch.cuda.synchronize()
+        collectives.barrier()
+        t0 = time.perf_counter()
+        tr.one_iteration(i, real)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    torch.save({"digest": digest, "by_kind": by_kind,
+                "expected": expected, "counts": counts, "seen": seen, "by_step": by_step,
+                "plain_ms": plain, "metrics": tr.metrics_history, "step": step,
+                "save_dir": tr.save_dir, "world": tr.world, "backend": torch.distributed.get_backend(),
+                "local_batch": real.shape[0], "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "params": {"G": sum(p.numel() for p in st.generator.parameters()),
+                           "D": sum(p.numel() for p in st.discriminator.parameters())}},
+               Path(out_dir) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def collectives_text(calls: list) -> str:
+    """One step's collectives: count, payload MB per rank and ms, by kind."""
+    parts = []
+    for name in ("_all_reduce_", "_all_gather"):
+        sel = [c for c in calls if c[0] == name]
+        if sel:
+            parts.append(f"{name.strip('_')} {len(sel)} calls {sum(c[1] for c in sel) / 1e6:.3f} MB "
+                         f"{sum(c[2] for c in sel):.2f} ms")
+    return ", ".join(parts) or "none"
+
+
+def max_rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-12)
+
+
+def replay_sweep(model_dir: Path) -> tuple[dict, torch.Tensor, object]:
+    """The sweep of DIST_SWEEP_ROWS rows (seed 0, batches of SWEEP_BATCH) as
+    the two ranks compute it: each batch's z drawn whole, then each half
+    through ``gen_batch`` (the static noise drawn after z) and the
+    predictors at half the batch, under the command line's TF32 defaults.
+    The columns as the table has them, the first batch's images (its
+    halves joined) and the extractor."""
+    from gan_control_torch.inference.extract_controls import ControlExtractor
+    from gan_control_torch.inference.inference import Inference
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Inference(model_dir, device="cuda")
+    extractor = ControlExtractor(model.config["training_config"], device=model.device)
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    half = SWEEP_BATCH // 2
+    cols: dict[str, list] = {}
+    first = []
+    for b in range(DIST_SWEEP_ROWS // SWEEP_BATCH):
+        z = torch.randn((SWEEP_BATCH, model.style_dim), generator=gen, device=gen.device)
+        after_z = gen.get_state()
+        for rows in (slice(0, half), slice(half, SWEEP_BATCH)):
+            gen.set_state(after_z)
+            img, latent, latent_w = model.gen_batch(batch_size=half, normalize=False, latent=z[rows],
+                                                    generator=gen)
+            if b == 0:
+                first.append(img)
+            batch = {"latents": latent, "latents_w": latent_w[:, 0], **extractor.extract_tensors(img)}
+            for name, t in batch.items():
+                cols.setdefault(name, []).append(t.detach().cpu().numpy())
+    return {k: np.concatenate(v) for k, v in cols.items()}, torch.cat(first), extractor
+
+
+def net_batch_witness(extractor, images: torch.Tensor) -> dict:
+    """The nets of DIST_BATCH_SENSITIVE on ``images`` (one sweep batch) at
+    the whole batch against its two halves: in f32 as the sweep runs them
+    (TF32 convolutions), in f32 with cuDNN off (ATen's convolutions take
+    one image at a time) and in float64. Column -> reading -> (the halves
+    against the whole batch, the whole batch against float64's), each the
+    largest error over the largest entry."""
+    from gan_control_torch.losses.predictors import predictor_module
+
+    half = images.shape[0] // 2
+    out = {}
+    for col, loss in DIST_BATCH_SENSITIVE.items():
+        model, pm = extractor.models[loss], predictor_module(loss)
+
+        @torch.no_grad()
+        def run(x):
+            whole = pm.predict(model, x)
+            halves = torch.cat([pm.predict(model, x[:half]), pm.predict(model, x[half:])])
+            return whole.double().cpu().numpy(), halves.double().cpu().numpy()
+
+        readings = {}
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            readings["f32"] = run(images.float())
+        with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+            readings["f32 cuDNN off"] = run(images.float())
+        readings["float64"] = run(images.double())
+        exact = readings["float64"][0]
+        out[col] = {k: (max_rel(halves, whole), max_rel(whole, exact)) for k, (whole, halves) in readings.items()}
+    return out
+
+
+def parity_ranks(root: Path, worlds) -> None:
+    """Phase 21a: each step of ``parity_steps`` at each world size in
+    ``worlds`` (one rank over NCCL; more share the card over gloo)
+    against this process at the full batch."""
+    want = parity_steps(0, 1, torch.device("cuda"))
+    for world in worlds:
+        out = root / f"parity{world}"
+        out.mkdir()
+        spawn_ranks(parity_rank, world, str(out))
+        for r in range(world):
+            got = torch.load(out / f"rank{r}.pt", weights_only=False)
+            for kind in ("d_step", "d_reg_step", "g_step", "g_reg_step"):
+                (mw, gw), (mg, gg) = want[kind], got[kind]
+                loss_err = max(abs(mw[k] - mg[k]) / max(1.0, abs(mw[k])) for k in mw)
+                worst, worst_name = worst_grad_err(gw, gg)
+                log(f"distributed parity: world {world} ({got['backend']}) rank {r} {kind}: "
+                    f"{len(gw)} gradients, worst rel err {worst:.3g} ({worst_name}), losses "
+                    f"{mg} worst rel err {loss_err:.3g} (tol {TRAIN_PARITY_RTOL})")
+                if mw.keys() != mg.keys() or loss_err > TRAIN_PARITY_RTOL or worst > TRAIN_PARITY_RTOL:
+                    fail(f"distributed parity: world {world} rank {r} {kind} disagrees")
+            if got["ada_p"] != want["ada_p"] or want["ada_p"] == 0.3:
+                fail(f"distributed parity: ada_p {got['ada_p']} against {want['ada_p']}")
+            want_backend = "gloo" if world > torch.cuda.device_count() else "nccl"
+            if got["backend"] != want_backend:
+                fail(f"distributed parity: world {world} ran {got['backend']}, expected {want_backend}")
+
+
+def ffhq_ranks(root: Path, world: int) -> list[dict]:
+    """Phase 21b at ``world`` ranks (sharing the card over gloo): ``ffhq_rank`` on
+    configs/ffhq.json with the synthetic loader; the ranks' parameters
+    bitwise equal and their launches per step as derived; the collectives
+    and plain iterations logged. Returns each rank's results."""
+    config = json.loads((CONFIGS / "ffhq.json").read_text())
+    config["results_dir"] = str(root / f"train_results{world}")
+    config["data_config"] = {"data_set_name": "synthetic"}
+    config_path = root / f"ffhq_{world}_ranks.json"
+    config_path.write_text(json.dumps(config, indent=2))
+    out = root / f"ffhq{world}"
+    out.mkdir()
+    spawn_ranks(ffhq_rank, world, str(out), str(config_path))
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    a = ranks[0]
+    backend = "gloo" if world > torch.cuda.device_count() else "nccl"
+    layout = f"{world} ranks ({backend}, {min(world, torch.cuda.device_count())} cards)"
+    for res in ranks:
+        if res["digest"] != a["digest"] or res["metrics"] != a["metrics"] or res["step"] != DIST_ITERS:
+            fail(f"distributed train_generator: {layout}: parameters, metrics or steps differ")
+        if (res["world"], res["backend"], res["local_batch"]) != (world, backend, 16 // world):
+            fail(f"distributed train_generator: world {res['world']} backend {res['backend']}, "
+                 f"local batch {res['local_batch']}")
+        for kind, calls in res["by_kind"].items():
+            for got in calls:
+                if got != res["expected"][kind]:
+                    fail(f"distributed {kind}: launches {got}, expected {res['expected'][kind]}")
+        if not all(math.isfinite(v) for h in res["metrics"] for v in h.values()):
+            fail(f"distributed train_generator: metrics not finite {res['metrics']}")
+    runs = {k: len(v) for k, v in a["by_kind"].items()}
+    if runs != {"d_step": DIST_ITERS + 1, "d_reg_step": 2, "g_step": DIST_ITERS + 1, "g_reg_step": 2}:
+        fail(f"distributed train_generator: step kinds run {runs}")
+    ckpts = sorted(p.name for p in (a["save_dir"] / "checkpoint").iterdir())
+    log(f"distributed train_generator: {layout}, local batch {16 // world} of 16, {DIST_ITERS} "
+        f"iterations after the dry run; parameters bitwise equal (sha256 {a['digest'][:16]}); launches "
+        f"per rank per step as expected_step_counts ({runs}); checkpoints {ckpts}; params G "
+        f"{a['params']['G']} D {a['params']['D']}; peak per rank {[round(r['peak_gib'], 2) for r in ranks]} GiB")
+    log(f"distributed metrics: {a['metrics']}")
+    for kind, calls in a["by_step"].items():
+        for c in calls:
+            log(f"distributed collectives: {layout}, rank 0 {kind}: {collectives_text(c)}")
+    for r, res in enumerate(ranks):
+        log(f"distributed plain iteration (d_step + g_step), {layout}: rank {r} median "
+            f"{statistics.median(res['plain_ms']):.2f} ms ({[round(t, 2) for t in res['plain_ms']]})")
+    return ranks
+
+
+def distributed_phase(build_root: Path) -> tuple[Counter, dict]:
+    """Phase 21. Returns the launches that rank 0 recorded in (b) by (kernel,
+    shape, dtype, static args), and (b)'s launch counts over both ranks."""
+    import shutil
+
+    from gan_control_torch.data.dataframe import read_table
+    from gan_control_torch.trainers.controller_trainer import ControllerTrainer
+    from gan_control_torch.utils import checkpoint as ckpt_lib
+    from gan_control_torch.utils.flax_bridge import flax_to_state_dict
+
+    root = build_root / "distributed"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+
+    # (a) size-32 parity: two ranks over gloo on the one card, one over NCCL
+    with Phase("distributed parity"):
+        parity_ranks(root, (2, 1))
+
+    # (b) FFHQ-512 train_generator over two ranks sharing the card
+    with Phase("distributed train_generator"):
+        ranks = ffhq_ranks(root, 2)
+    seen = ranks[0]["seen"] + ranks[1]["seen"]
+    counts = {n: sum(res["counts"][n] for res in ranks) for n in KERNELS}
+    if counts != {n: sum(c for key, c in seen.items() if key[0] == n) for n in KERNELS}:
+        fail(f"distributed train_generator: launch hooks disagree with the counters {counts}")
+
+    # (c) the attribute sweep over two ranks against one process, on phase
+    # 10's directory with an f32 synthesis: in bf16 the synthesis at batch 20
+    # and 40 differs by bf16 rounding, and the random-init predictors (DEX's
+    # one-hot softmax) turn that into whole classes
+    model_dir = build_root / "phase2" / "controller" / "generator"
+    f32_dir = root / "generator_f32"
+    shutil.copytree(model_dir, f32_dir)
+    args = json.loads((f32_dir / "args.json").read_text())
+    args["model_config"]["mixed_precision"] = False
+    (f32_dir / "args.json").write_text(json.dumps(args, indent=2))
+    with Phase("distributed sweep"):
+        tables = {}
+        for label, launcher in (("one process", []),
+                                ("two ranks", ["torch.distributed.run", "--standalone", "--nproc_per_node=2"])):
+            path = root / f"attributes_{label.replace(' ', '_')}.npz"
+            cmd = ["--model_dir", str(f32_dir), "--batch_size", str(SWEEP_BATCH), "--number_of_samples",
+                   str(DIST_SWEEP_ROWS), "--save_path", str(path)]
+            if launcher:
+                lines = run_cli(launcher[0], [*launcher[1:], "-m", "gan_control_torch.make_attributes_df", *cmd],
+                                root / "make_attributes_df_two_ranks.log", 900)
+            else:
+                lines = run_cli("gan_control_torch.make_attributes_df", cmd, root / "make_attributes_df.log", 900)
+            rate = re.search(r"swept \d+ rows in [\d.]+ s \(([\d.]+) rows/s", "\n".join(lines))
+            tables[label] = read_table(path)
+            log(f"distributed sweep: {label}: make_attributes_df --batch_size {SWEEP_BATCH} --number_of_samples "
+                f"{DIST_SWEEP_ROWS} (f32 synthesis): {rate[1] if rate else 'no'} rows/s")
+        got, one = tables["two ranks"], tables["one process"]
+        if list(got) != list(one) or any(got[c].shape != one[c].shape for c in one):
+            fail(f"distributed sweep: columns {list(got)} against {list(one)}")
+        # the whole sweep again in this process, at the ranks' batch: each
+        # half through the G and the predictors alone, from the same draws
+        replay, images, extractor = replay_sweep(f32_dir)
+
+        def err(col, a, b):  # the vote: rows that differ; else the error over the largest entry
+            return int((a != b).sum()) if col == "expression_q" else max_rel(a, b)
+
+        rel = {col: (err(col, got[col], w), err(col, got[col], replay[col])) for col, w in one.items()}
+        log(f"distributed sweep: per column over all {DIST_SWEEP_ROWS} rows, two ranks against one process / "
+            f"two ranks against this process at batch {SWEEP_BATCH // 2}; the largest error over the largest "
+            f"entry, rows for expression_q: " + ", ".join(f"{c} {a:.3g} / {r:.3g}" for c, (a, r) in rel.items()))
+        for col, (a, r) in rel.items():
+            tol = 0 if col == "expression_q" else DIST_LATENT_RTOL if col.startswith("latents") \
+                else DIST_PREDICTOR_RTOL
+            if r > tol or (col not in DIST_BATCH_SENSITIVE and a > tol):
+                fail(f"distributed sweep: {col} errors {a:.3g} / {r:.3g} against {tol}")
+        witness = net_batch_witness(extractor, images)
+        del extractor, images
+        for col, readings in witness.items():
+            log(f"distributed sweep: {col} on one batch's images, {SWEEP_BATCH // 2} + {SWEEP_BATCH // 2} rows "
+                f"against {SWEEP_BATCH} / {SWEEP_BATCH} rows against float64's: " + ", ".join(
+                    f"{k} {h:.3g} / {e:.3g}" for k, (h, e) in readings.items())
+                + f" (float64's batch shift tol {DIST_F64_BATCH_RTOL})")
+            if readings["float64"][0] > DIST_F64_BATCH_RTOL:
+                fail(f"distributed sweep: {col} moves with the batch size in float64: a net couples rows")
+
+    # (d) train_controller over two ranks against one process
+    table_path = build_root / "attributes.npz"
+    with Phase("distributed controller"):
+        cfg = controller_config(model_dir, table_path, root / "controllers")
+        cfg["training_config"].update(min_evaluate_interval=DIST_CTRL_EVAL, save_nets_interval=10**6)
+        cfg_path = root / "age_controller_two_ranks.json"
+        cfg_path.write_text(json.dumps(cfg, indent=2))
+        lines = run_cli("torch.distributed.run",
+                        ["--standalone", "--nproc_per_node=2", "-m", "gan_control_torch.train_controller",
+                         "--config_path", str(cfg_path), "--iters", str(DIST_CTRL_ITERS)],
+                        root / "train_controller.log", 900)
+        heads = sorted((root / "controllers").glob("age_*"))
+        if len(heads) != 1:
+            fail(f"distributed controller: head directories {heads}")
+        ckpts = sorted(p.name for p in (heads[0] / "checkpoint").glob("*.ckpt"))
+        if ckpts != [f"{DIST_CTRL_ITERS:06d}.ckpt"]:
+            fail(f"distributed controller: checkpoints {ckpts}")
+        got = flax_to_state_dict(ckpt_lib.load_state_dict(heads[0] / "checkpoint" / ckpts[0])["controller"])
+        tr = ControllerTrainer(config=cfg, init_dirs=False, device="cuda")
+        tr.train(DIST_CTRL_ITERS)
+        want = {k: v.detach().cpu() for k, v in tr.controller.state_dict().items()}
+        worst, worst_name = worst_grad_err(want, got)
+        logged = [m for m in (re.search(r"controller iter (\d+): (\{.*\})", ln) for ln in lines) if m]
+        by_iter = {}
+        for m in logged:
+            by_iter.setdefault(int(m[1]), {k: float(v) for k, v in re.findall(r"'(\w+)': ([-\w.+]+)", m[2])})
+        metric_err = max(abs(by_iter[h["iter"]][k] - h[k]) / max(abs(h[k]), 1e-12)
+                         for h in tr.metrics_history for k in h if k != "iter")
+        log(f"distributed controller: torchrun --nproc_per_node=2 train_controller --iters {DIST_CTRL_ITERS} "
+            f"(batch {cfg['training_config']['batch']}, latent_rec): the head against one process, worst rel "
+            f"err {worst:.3g} ({worst_name}); metrics at {sorted(by_iter)} worst rel err {metric_err:.3g} "
+            f"(tol {DIST_CTRL_RTOL})")
+        if sorted(by_iter) != [h["iter"] for h in tr.metrics_history] or worst > DIST_CTRL_RTOL \
+                or metric_err > DIST_CTRL_RTOL:
+            fail("distributed controller: two ranks and one process disagree")
+    return seen, counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3435,12 +4005,22 @@ def main() -> None:
         fail(f"the alignment and projection launch hooks disagree with the counters {counts6}")
     merge_totals(totals, totals6)
 
+    # 21. data parallelism across processes
+    seen7, counts7 = distributed_phase(build_root)
+    with Phase("distributed kernels"):
+        totals7 = train_kernel_phase(seen7, f"two-rank train_generator --iters {DIST_ITERS}",
+                                     both_dtypes=False)
+    for n in KERNELS:
+        log(f"distributed totals {n}: launches {counts7[n]} " + totals_text(totals7[n]))
+    merge_totals(totals, totals7)
+
     entries = []
     for n, (route, src, replaces) in KERNELS.items():
         tot = totals[n]
         entries.append({
             "name": n, "route": route, "source": src, "replaces": replaces,
-            "launches": counts[n] + counts2[n] + counts3[n] + counts4[n] + counts5[n] + counts6[n],
+            "launches": counts[n] + counts2[n] + counts3[n] + counts4[n] + counts5[n] + counts6[n]
+            + counts7[n],
             "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],

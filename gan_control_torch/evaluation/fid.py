@@ -5,10 +5,13 @@
     features, in f32 at "highest" (TF32 off unless
     ``GANCTL_PREDICTOR_PRECISION`` says otherwise), whatever precision the
     training battery runs at;
-  - :func:`make_gen_feature_fn`: one FID chunk on one device: z (drawn
-    from a ``torch.Generator`` or passed in) -> G -> ``img * 0.5 + 0.5``,
-    NOT clipped (the reference feeds the raw G output to Inception; a clip
-    would change the FID) -> features. The images stay on the device;
+  - :func:`make_gen_feature_fn`: one FID chunk: z (drawn from a
+    ``torch.Generator`` or passed in) -> G -> ``img * 0.5 + 0.5``, NOT
+    clipped (the reference feeds the raw G output to Inception; a clip
+    would change the FID) -> features. The images stay on the device.
+    Under a process group whose world size divides the chunk, each rank
+    synthesises its rows of it and every rank returns the gathered
+    features (as the JAX trainer's sharded chunk does);
   - :func:`compute_stats`, :func:`frechet_distance` (float64 on the host,
     ``scipy.linalg.sqrtm``, an ``eps * I`` retry when the product is
     singular, a raise on a large imaginary part), the ``{'mean', 'cov'}``
@@ -24,6 +27,8 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from gan_control_torch.utils import collectives
+from gan_control_torch.utils.mesh import data_batch_sharding
 from gan_control_torch.utils.precision import predictor_precision_ctx
 
 
@@ -42,8 +47,11 @@ def make_gen_feature_fn(generator, inception, batch: int, style_dim: int = 512):
     """``run(gen=None, z=None, noise=None) -> [batch, 2048]``: features of
     ``batch`` images of ``generator``. z is ``z`` or drawn from ``gen`` (a
     ``torch.Generator`` on the G's device), then the injection noise is
-    ``noise`` or drawn from ``gen``. ``run.batch`` is the chunk."""
+    ``noise`` or drawn from ``gen``. ``run.batch`` is the chunk. Sharded
+    (module docstring), z and the noise are the chunk's, of which each rank
+    synthesises its rows (``collectives.sharded_batch``)."""
     features = make_feature_fn(inception)
+    rows = data_batch_sharding(batch, "FID chunk")
 
     @torch.no_grad()
     def run(gen: torch.Generator | None = None, z: torch.Tensor | None = None,
@@ -51,8 +59,13 @@ def make_gen_feature_fn(generator, inception, batch: int, style_dim: int = 512):
         if z is None:
             device = gen.device if gen is not None else next(generator.parameters()).device
             z = torch.randn((batch, style_dim), generator=gen, device=device)
-        img, _ = generator([z], noise=noise, generator=gen)
-        return features(img.float() * 0.5 + 0.5)
+        if rows is None:
+            img, _ = generator([z], noise=noise, generator=gen)
+            return features(img.float() * 0.5 + 0.5)
+        with collectives.sharded_batch():
+            noise = None if noise is None else [collectives.own_rows(n) for n in noise]
+            img, _ = generator([z[rows]], noise=noise, generator=gen)
+        return collectives.all_gather(features(img.float() * 0.5 + 0.5))
 
     run.batch = batch
     return run
@@ -102,12 +115,13 @@ def frechet_distance(mu1, cov1, mu2, cov2, eps: float = 1e-6) -> float:
 def extract_features(feature_fn, image_batches: Iterable, n_samples: int,
                      device: str | torch.device = "cpu") -> np.ndarray:
     """The first ``n_samples`` features of [0, 1] NHWC batches (numpy or
-    tensors), each moved to ``device``, as float32 numpy."""
+    tensors), each moved to ``device``, as float32 numpy (``feature_fn`` may
+    return more rows than a batch has: a sharded sweep's gathered rows)."""
     feats, total = [], 0
     for batch in image_batches:
         batch = torch.as_tensor(batch)
         feats.append(feature_fn(batch.to(device)).float().cpu().numpy())
-        total += batch.shape[0]
+        total += feats[-1].shape[0]
         if total >= n_samples:
             break
     return np.concatenate(feats, axis=0)[:n_samples]

@@ -3,8 +3,8 @@ predictors, and write the attribute table.
 
     python -m gan_control_torch.make_attributes_df --model_dir <phase-1 dir> \
         --save_path attributes.npz [--batch_size 40] [--number_of_samples 100000] \
-        [--seed 0] [--device cpu] [--align_3d [--fan_weights F] [--detector {sfd,blazeface}
-        --detector_weights D] [--depth_weights Z]]
+        [--seed 0] [--device cpu] [--no_shard] [--align_3d [--fan_weights F]
+        [--detector {sfd,blazeface} --detector_weights D] [--depth_weights Z]]
 
 As the JAX package's ``make_attributes_df.py``: each batch draws z from a
 ``torch.Generator`` seeded with ``--seed``, generates through
@@ -26,6 +26,14 @@ and device milliseconds per batch, the detector's counts and the range of
 the alignment's POS scale (the times and counts over the batches after
 the first, whose warm-up they leave out, the range over all), and the
 rows/s of the batches after the first.
+
+Under ``torchrun --standalone --nproc_per_node=N -m
+gan_control_torch.make_attributes_df ...`` each rank generates and
+predicts its rows of every batch (z drawn for the whole batch on every
+rank, the static noise batch-independent, so the rows equal the unsharded
+sweep's), ``--align_3d`` included; rank 0 gathers the rows and writes the
+table. ``--no_shard``, or a batch the world size does not divide (with a
+warning), runs every batch whole on every rank, and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -56,6 +64,8 @@ def main(argv: list[str] | None = None) -> None:
                         help="the --detector's checkpoint")
     parser.add_argument("--depth_weights", type=str, default=None,
                         help="a 1adrianb depth checkpoint: each landmark's z")
+    parser.add_argument("--no_shard", action="store_true",
+                        help="do not shard the batches over the ranks of a torchrun run")
     args = parser.parse_args(argv)
     if (args.detector or args.depth_weights) and not args.fan_weights:
         parser.error("--detector/--depth_weights require --fan_weights (FAN landmarks are what "
@@ -70,9 +80,12 @@ def main(argv: list[str] | None = None) -> None:
     from gan_control_torch.data.dataframe import write_table
     from gan_control_torch.inference.extract_controls import ControlExtractor
     from gan_control_torch.inference.inference import Inference
+    from gan_control_torch.utils import collectives, multihost
     from gan_control_torch.utils.logging_utils import get_logger
+    from gan_control_torch.utils.mesh import data_batch_sharding
 
     log = get_logger("gan_control_torch.make_attributes_df")
+    rank, _ = multihost.initialize(device=args.device)
     model = Inference(args.model_dir, device=args.device)
     timer = StageTimer(model.device)
     align_fn = make_align_fn_of(args, model.device) if args.align_3d else None
@@ -82,6 +95,8 @@ def main(argv: list[str] | None = None) -> None:
                                  align_3d=args.align_3d, device=model.device)
     extractor.timer = timer
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
+    rows_of = None if args.no_shard else data_batch_sharding(args.batch_size, "attribute sweep")
+    local_batch = rows_of.stop - rows_of.start if rows_of else args.batch_size
 
     columns: dict[str, list[np.ndarray]] = {}
     n_batches = args.number_of_samples // args.batch_size
@@ -90,13 +105,17 @@ def main(argv: list[str] | None = None) -> None:
     for b in range(n_batches):
         with timer.stage("generation"):
             z = torch.randn((args.batch_size, model.style_dim), generator=gen, device=gen.device)
-            img, latent, latent_w = model.gen_batch(batch_size=args.batch_size, normalize=False,
+            if rows_of is not None:
+                z = z[rows_of]
+            img, latent, latent_w = model.gen_batch(batch_size=local_batch, normalize=False,
                                                     latent=z, generator=gen)
         batch = {"latents": latent, "latents_w": latent_w[:, 0], **extractor.extract_tensors(img)}
         for name, t in batch.items():
-            columns.setdefault(name, []).append(t.detach().cpu().numpy())
+            t = t.detach().cpu()
+            columns.setdefault(name, []).append(
+                (collectives.all_gather(t) if rows_of is not None else t).numpy())
         rows += args.batch_size
-        if rows % SAVE_EVERY == 0 or b == n_batches - 1:
+        if rank == 0 and (rows % SAVE_EVERY == 0 or b == n_batches - 1):
             write_table(args.save_path, {k: np.concatenate(v) for k, v in columns.items()})
             log.info("saved %d rows -> %s", rows, args.save_path)
         if b == 0 and n_batches > 1:  # the stages' numbers leave out the first batch's warm-up
@@ -124,6 +143,7 @@ def main(argv: list[str] | None = None) -> None:
         log.info("range %s: %.6g to %.6g", name, lo, hi)
     if model.device.type == "cuda":
         log.info("peak memory %.3f GiB", torch.cuda.max_memory_allocated() / 2**30)
+    collectives.barrier()
 
 
 def make_align_fn_of(args, device):

@@ -27,6 +27,7 @@ from gan_control_torch.ops import (
     upsample_2x,
 )
 from gan_control_torch.ops.upfirdn2d import blur_pad_downsample
+from gan_control_torch.utils import collectives
 
 
 def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -115,9 +116,12 @@ class ModulatedConv2d(nn.Module):
 
 
 def _draw_noise(x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    """[B, H, W, 1] noise; inside ``collectives.sharded_batch`` drawn at the
+    global batch, of which the rank keeps its rows."""
     b, h, w, _ = x.shape
     device = x.device if generator is None else generator.device
-    return torch.randn((b, h, w, 1), generator=generator, device=device).to(x)
+    n, rows = collectives.global_batch(b)
+    return torch.randn((n, h, w, 1), generator=generator, device=device)[rows].to(x)
 
 
 class NoiseInjection(nn.Module):
@@ -330,12 +334,16 @@ def minibatch_stddev(x: torch.Tensor, group_size: int = 4, num_features: int = 1
     """Append the cross-sample stddev statistic channel (NHWC): groups of
     ``min(batch, group_size)`` strided over the batch, population variance
     over the group, ``sqrt(var + 1e-8)``, mean over H, W and the channels of
-    each feature split, tiled back as ``num_features`` extra channels."""
-    b, h, w, c = x.shape
+    each feature split, tiled back as ``num_features`` extra channels. The
+    groups stride over the global batch: inside ``collectives.sharded_batch``
+    the statistic is taken over the gathered rows, and the rank keeps its
+    rows of it."""
+    full = collectives.gather_batch(x)
+    b, h, w, c = full.shape
     g = min(b, group_size)
-    grouped = x.reshape(g, b // g, h, w, num_features, c // num_features)
+    grouped = full.reshape(g, b // g, h, w, num_features, c // num_features)
     var = torch.var(grouped, dim=0, unbiased=False)
     std = torch.sqrt(var + 1e-8)
     stat = torch.mean(std, dim=(1, 2, 4))  # [b//g, feat]
     stat = stat[:, None, None, :].repeat(g, h, w, 1)  # [b, h, w, feat]
-    return torch.cat([x, stat], dim=-1)
+    return torch.cat([x, collectives.own_rows(stat)], dim=-1)

@@ -36,6 +36,7 @@ from gan_control_torch.models.blocks import (
     ToRGB,
     pixel_norm,
 )
+from gan_control_torch.utils import collectives
 
 
 def channel_table(channel_multiplier: float = 2.0, max_channels: int = 512) -> dict[int, int]:
@@ -219,11 +220,13 @@ class Generator(nn.Module):
         """Per-layer injection noise ``[batch, H, W, 1]`` f32 on ``device``
         (the generator's by default), drawn from ``generator`` in layer
         order, as the layers of a 'normal' noise mode draw it when given
-        none."""
+        none; inside ``collectives.sharded_batch`` at the global batch, of
+        which the rank keeps its rows."""
         src = generator.device if generator is not None else device
         device = src if device is None else device
-        return [torch.randn(s, generator=generator, device=src).to(device)
-                for s in self.noise_shapes(batch)]
+        n, rows = collectives.global_batch(batch)
+        return [torch.randn(s, generator=generator, device=src)[rows].to(device)
+                for s in self.noise_shapes(n)]
 
     def _styled_conv(self, k: int, x, style, noise, generator):
         conv = self.convs[k]

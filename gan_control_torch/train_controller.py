@@ -8,7 +8,9 @@ As the JAX package's ``train_controller.py``: ``ControllerTrainer`` on the
 config (the frozen generator from ``generator_dir``, the attribute table
 from ``sampled_df_path``, ``.npz`` or ``.pkl``), then ``train()``. It runs
 on the CUDA device unless ``--device`` names another, and raises without a
-GPU.
+GPU. Under ``torchrun --standalone --nproc_per_node=N -m
+gan_control_torch.train_controller ...`` the N ranks share each batch
+(``utils/multihost.py``; N must divide ``training_config.batch``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ def main(argv: list[str] | None = None) -> None:
     args = parser.parse_args(argv)
 
     from gan_control_torch.trainers.controller_trainer import ControllerTrainer
+    from gan_control_torch.utils import multihost
 
+    multihost.initialize(device=args.device)
     trainer = ControllerTrainer(config_path=args.config_path, device=args.device)
     trainer.train(args.iters)
 

@@ -9,6 +9,14 @@ As the JAX package's ``train_generator.py``: the config's predictor battery
 runs on the CUDA device unless ``--device`` names another, and raises
 without a GPU. SIGTERM or SIGINT ends the run after the iteration in
 flight, with a checkpoint at the next iteration, and exit code 0.
+
+Data-parallel over N processes, each taking its rows of every global batch
+(``utils/multihost.py``; N must divide the batch):
+
+    torchrun --standalone --nproc_per_node=N -m gan_control_torch.train_generator \
+        --config_path gan_control_tpu/configs/ffhq.json
+
+A plain ``python -m`` run is one process.
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ def main(argv: list[str] | None = None) -> None:
 
     from gan_control_torch.losses.registry import build_attr_losses
     from gan_control_torch.trainers.generator_trainer import GeneratorTrainer
+    from gan_control_torch.utils import multihost
     from gan_control_torch.utils.config import read_json
 
+    multihost.initialize(device=args.device)
     config = read_json(args.config_path)
     attr_losses, predictors = build_attr_losses(config["training_config"], device=args.device)
     trainer = GeneratorTrainer(config=config, device=args.device, attr_losses=attr_losses,

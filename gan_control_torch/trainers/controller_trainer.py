@@ -37,7 +37,13 @@ generator run's ``predictor_precision`` with the in-training fallback
 ``torch.Generator`` seeded with ``seed + 7``, so a recompute sees the same
 noise.
 
-One device; data-parallel training is not ported yet.
+Data parallelism (``utils/multihost.py``; JAX ``:215-248``, ``:439-452``):
+every rank reads the same global batches of the table and takes its rows,
+each step draws its noise at the global batch (``collectives.sharded_batch``)
+and averages the gradients over ranks, so the head stays the one-process
+head on every rank. A training batch that the world size does not divide
+raises; the evaluation batches are computed whole on every rank. Rank 0
+alone makes the directory and writes the grids and checkpoints.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from gan_control_torch.models.blocks import init_params_
 from gan_control_torch.models.controller import FcStack
 from gan_control_torch.training.state import optimizer_step, reg_adam
 from gan_control_torch.utils import checkpoint as ckpt_lib
+from gan_control_torch.utils import collectives
 from gan_control_torch.utils.config import make_save_dir, read_json
 from gan_control_torch.utils.flax_bridge import adam_to_optax, state_dict_to_flax
 from gan_control_torch.utils.logging_utils import get_logger
@@ -138,12 +145,16 @@ class ControllerTrainer:
         self.head_name = self.working_group
         if self.working_group == "expression" and mc.get("in_dim") == 8:
             self.head_name = "expression_q"
+        self.rank, self.world = collectives.world()
+        self.is_writer = self.rank == 0
         self.save_dir = None
         if init_dirs:
-            name = f"{self.head_name}_{self.config.get('save_name', 'controller')}"
-            self.save_dir = make_save_dir(self.config.get("results_dir", "results/controllers"),
-                                          name, self.config, debug=tc.get("debug", False))
-            self._copy_generator_into_save_dir()
+            if self.is_writer:
+                name = f"{self.head_name}_{self.config.get('save_name', 'controller')}"
+                self.save_dir = make_save_dir(self.config.get("results_dir", "results/controllers"),
+                                              name, self.config, debug=tc.get("debug", False))
+                self._copy_generator_into_save_dir()
+            self.save_dir = collectives.broadcast_object(self.save_dir)
 
         self.controller = init_params_(FcStack(
             in_dim=mc["in_dim"],
@@ -244,13 +255,21 @@ class ControllerTrainer:
     def _batch(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr, np.float32), device=self.device)
 
+    @collectives.sharded_batch()
     def train_step(self, controls, org_latent, noise=None) -> dict[str, torch.Tensor]:
-        """One update of the head. ``noise``: the G's per-layer injection
-        noise for ``attribute_rec`` (drawn from ``self.rng`` when None).
-        Returns the metrics as device tensors; the parameters' ``.grad``
-        hold this step's gradients afterwards."""
+        """One update of the head on the global batch ``(controls,
+        org_latent)``, of which each rank computes its rows. ``noise``: the
+        G's per-layer injection noise of the global batch for
+        ``attribute_rec`` (drawn from ``self.rng`` when None). Returns the
+        metrics (global means) as device tensors; the parameters' ``.grad``
+        hold this step's gradients (averaged over ranks) afterwards."""
+        if len(controls) % self.world:
+            raise ValueError(f"training batch {len(controls)} is not divisible by the {self.world} "
+                             "ranks: each would compute the whole batch; pick a divisible "
+                             "training_config.batch")
         s, e = self.group_slice
-        controls, org_latent = self._batch(controls), self._batch(org_latent)
+        controls = collectives.own_rows(self._batch(controls))
+        org_latent = collectives.own_rows(self._batch(org_latent))
         self.opt.zero_grad(set_to_none=True)
         pred_latent = self.controller(controls)
         rec = self._rec_loss(pred_latent, org_latent[:, s:e])
@@ -259,6 +278,8 @@ class ControllerTrainer:
         if self.use_attribute_rec:
             if noise is None:
                 noise = self.generator.draw_noise(len(controls), self.rng, self.device)
+            else:
+                noise = [collectives.own_rows(torch.as_tensor(n, device=self.device)) for n in noise]
             attr = self._attribute_loss(pred_latent, controls, org_latent, noise)
             metrics["attribute_loss"] = attr.detach()
             total = total + self.attribute_rec_w * attr
@@ -266,7 +287,7 @@ class ControllerTrainer:
         total.backward()
         optimizer_step(self.opt)
         self.step += 1
-        return metrics
+        return collectives.mean_metrics(metrics)
 
     # -- evaluation and images ----------------------------------------------------
 
@@ -298,7 +319,7 @@ class ControllerTrainer:
         """A grid whose columns alternate the frozen G's image of a held-out
         w and of that w with the head's slice for its control, the same
         injection noise for each pair."""
-        if self.save_dir is None or self.eval_dataset is None:
+        if self.save_dir is None or self.eval_dataset is None or not self.is_writer:
             return None
         n = DUAL_IMAGES
         rows = np.random.default_rng(i).integers(0, len(self.eval_dataset), n)
@@ -346,15 +367,19 @@ class ControllerTrainer:
                 self.save_nets(i)
         if self.save_dir:
             self.save_nets(total)
+        collectives.barrier()
         if self.iter_times:
             ms = [t * 1e3 for t in self.iter_times]
             _log.info("controller: %d iterations, median %.4f ms per iteration (host clock, "
                       "no sync; the loader's batch and the step, without evaluations and saves)",
                       len(ms), statistics.median(ms))
 
-    def save_nets(self, step: int) -> Path:
+    def save_nets(self, step: int) -> Path | None:
         """``checkpoint/%06d.ckpt`` holding ``{"controller": flax tree,
-        "controller_optim": optax adam state}``."""
+        "controller_optim": optax adam state}``; written by rank 0 alone
+        (the others return None)."""
+        if not self.is_writer:
+            return None
         payload = {
             "controller": state_dict_to_flax(self.controller.state_dict()),
             "controller_optim": adam_to_optax(self.opt, self.controller),

@@ -44,7 +44,19 @@ inputs in ``d_step`` and ``g_step``: ``p`` adapts toward ``ada_target``
 mapping keeps its init where the group layouts differ), before
 ``ckpt_config`` resumes. Checkpoints carry ``ada_p`` across both packages.
 
-Not ported yet: multi-device training.
+Data parallelism (``utils/multihost.py``, as the JAX trainer on a mesh that
+spans processes): every rank builds the same state (same seeds, or the same
+checkpoint), draws the same host z and arrangements at the global batch and
+keeps its rows, and its loader reads only its rows of each global batch
+(``shard_index``/``num_shards``; an injected ``data_loader`` must yield the
+rank's rows likewise). The steps make each update the one-process update of
+the global batch (``training/train_step.py``), so the ranks stay equal. The
+global batch and the path-length batch must divide by the world size. Rank
+0 alone makes the results directory (the others learn its path) and writes
+the metrics, images and checkpoints; every rank computes the evaluations
+(FID over sharded chunks) and gets the same numbers. SIGTERM or SIGINT on
+any rank stops every rank after the same iteration (a max-reduce of the
+flag on the CPU group), with one checkpoint.
 """
 
 from __future__ import annotations
@@ -93,6 +105,7 @@ from gan_control_torch.training.train_step import (
     g_step,
 )
 from gan_control_torch.utils import checkpoint as ckpt_lib
+from gan_control_torch.utils import collectives
 from gan_control_torch.utils.config import (
     add_weight_to_name,
     config_checks,
@@ -149,15 +162,23 @@ class GeneratorTrainer:
         mc, tc = self.config["model_config"], self.config["training_config"]
         self.mc, self.tc = mc, tc
         self.device = resolve_device(device)
+        self.rank, self.world = collectives.world()
+        self.is_writer = self.rank == 0
+        path_batch = max(tc["batch"] // max(tc.get("path_batch_shrink", 2), 1), 1)
+        if tc["batch"] % self.world or path_batch % self.world:
+            raise ValueError(f"batch {tc['batch']} and path-length batch {path_batch} must divide "
+                             f"by the {self.world} ranks")
 
         self.save_dir = None
         if init_dirs:
-            name = self.config.get("save_name", "experiment")
-            if self.config.get("add_weight_to_name"):
-                name = add_weight_to_name(name, tc)
-            self.save_dir = make_save_dir(self.config.get("results_dir", "results"), name,
-                                          self.config, debug=tc.get("debug", False))
-            _log.info("save dir: %s", self.save_dir)
+            if self.is_writer:
+                name = self.config.get("save_name", "experiment")
+                if self.config.get("add_weight_to_name"):
+                    name = add_weight_to_name(name, tc)
+                self.save_dir = make_save_dir(self.config.get("results_dir", "results"), name,
+                                              self.config, debug=tc.get("debug", False))
+                _log.info("save dir: %s", self.save_dir)
+            self.save_dir = collectives.broadcast_object(self.save_dir)
 
         self.spec = build_group_spec(self.config)
         aug = tc.get("augment", {})
@@ -221,7 +242,8 @@ class GeneratorTrainer:
                       self.state.step)
 
         self.loader = data_loader if data_loader is not None else get_data_loader(
-            self.config.get("data_config", {}), tc["batch"], mc["size"])
+            self.config.get("data_config", {}), tc["batch"], mc["size"], shard_index=self.rank,
+            num_shards=self.world)
         self._feeder: DeviceFeeder | None = None
         self._host_rng = np.random.default_rng(self.seed + 1)
 
@@ -236,10 +258,11 @@ class GeneratorTrainer:
         self.step_times: dict[str, list[float]] = {k: [] for k in STEP_KINDS}
         self._sample_z_fixed: torch.Tensor | None = None
 
+        writer_dir = self.save_dir if self.is_writer else None
         self.tracker = Tracker(
-            save_dir=self.save_dir,
+            save_dir=writer_dir,
             tensorboard=bool(self.config.get("tensorboard_config", {}).get("enabled"))
-            and self.save_dir is not None,
+            and writer_dir is not None,
             csv_monitor=self.config.get("monitor_config", {}).get("enabled", False),
         )
         ec = self.config.get("evaluation_config", {})
@@ -258,8 +281,10 @@ class GeneratorTrainer:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _sample_z(self, batch: int):
+        """This rank's rows of the z of a global ``batch``, drawn as one
+        process draws them."""
         z = mixing_noise(self._host_rng, batch, self.step_cfg.style_dim, self.step_cfg.mixing)
-        return tuple(self._to_device(zi) for zi in z)
+        return tuple(self._to_device(zi[collectives.rows_of_rank(len(zi))]) for zi in z)
 
     def next_real(self) -> torch.Tensor:
         """The loader's next batch on the device (prefetched)."""
@@ -306,7 +331,8 @@ class GeneratorTrainer:
         if self._arrangement_rng is not None:
             arrangement = random_arrangement(self.spec, self._arrangement_rng)
             z = self._host_rng.standard_normal((tc["batch"], cfg.style_dim)).astype(np.float32)
-            metrics.update(self._run("g_step", g_step, state, cfg, self.spec, (self._to_device(z),),
+            metrics.update(self._run("g_step", g_step, state, cfg, self.spec,
+                                     (self._to_device(z[collectives.rows_of_rank(len(z))]),),
                                      attr_losses=self.attr_losses, predictors=self.predictors,
                                      arrangement=arrangement, augment_fn=self.augment_fn))
         else:
@@ -350,7 +376,8 @@ class GeneratorTrainer:
         back as it was. Returns the iteration's metrics as floats."""
         _log.info("dry run: one iteration of every step kind...")
         snap = self._snapshot()
-        real = self._to_device(next(synthetic_data_loader(self.tc["batch"], self.mc["size"])))
+        real = self._to_device(next(synthetic_data_loader(
+            self.tc["batch"], self.mc["size"], shard_index=self.rank, num_shards=self.world)))
         t0 = time.time()
         try:
             m = {k: float(v) for k, v in self.one_iteration(0, real=real).items()}
@@ -362,8 +389,8 @@ class GeneratorTrainer:
     def train(self, num_iters: int | None = None) -> None:
         """Iterations ``start_iter`` to ``num_iters`` (default
         ``training_config.iter``), with periodic sample images and
-        checkpoints. SIGTERM or SIGINT ends the run after the iteration in
-        flight, with a checkpoint at the next iteration."""
+        checkpoints. SIGTERM or SIGINT (on any rank) ends the run after the
+        iteration in flight, with a checkpoint at the next iteration."""
         preempted = []
         old_handlers = {}
         for sig in (signal.SIGTERM, signal.SIGINT):
@@ -379,6 +406,7 @@ class GeneratorTrainer:
         # debug saves no nets unless an interval is configured explicitly
         nets_in_debug = "save_nets_interval" in tc
         pending: tuple[int, dict] | None = None
+        stopped = False
 
         def flush(it: int, metrics: dict) -> None:
             vals = {k: float(v) for k, v in metrics.items()}
@@ -398,20 +426,24 @@ class GeneratorTrainer:
                 pending = (i, metrics)
                 self.iter_times.append(time.perf_counter() - t0)
                 if self.save_dir:
-                    if i % save_images_interval == 0 or (debug and i % 100 == 0):
+                    if self.is_writer and (i % save_images_interval == 0 or (debug and i % 100 == 0)):
                         self.save_images(i)
                     if i % save_nets_interval == 0 and (not debug or nets_in_debug):
                         self.save_nets(i)
                 self.evaluate(i)
-                if preempted:
-                    _log.warning("signal %d received: checkpointing at iter %d", preempted[0], i + 1)
+                if collectives.any_rank(bool(preempted)):
+                    stopped = True
+                    _log.warning("%s: checkpointing at iter %d", f"signal {preempted[0]} received"
+                                 if preempted else "another rank was signalled", i + 1)
                     if self.save_dir:
                         self.save_nets(i + 1, block=True)
                     break
             if pending is not None:
                 flush(*pending)
-            if self.save_dir and not preempted:
+            if self.save_dir and not stopped:
                 self.save_nets(total, block=True)
+            # the other ranks return once rank 0's checkpoint is written
+            collectives.barrier()
         finally:
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
@@ -440,7 +472,7 @@ class GeneratorTrainer:
         their numbers go into the Tracker's next record."""
         if (self.fid_cfg.get("enabled") and self.save_dir is not None
                 and self._eval_due(i, self.fid_cfg.get("fid_interval", 10000))):
-            fid = self.evaluate_fid()
+            fid = self.evaluate_fid()  # every rank: the chunks are sharded
             if fid is not None and self.tracker.register_fid(i, fid):
                 self.save_nets(i, name="best_fid")
         if self.separability_cfg.get("enabled") and self._eval_due(
@@ -486,11 +518,12 @@ class GeneratorTrainer:
         preds = np.concatenate(preds, axis=0)[:n]
         gdir = Path(self.save_dir) / "graphs"
         if kind == "orientation_hist":
-            plot_hist([preds[:, 0], preds[:, 1], preds[:, 2]], title=f"orientation @ iter {i}",
-                      labels=["yaw", "pitch", "roll"], xlabel="degrees",
-                      save_path=gdir / f"orientation_{i:06d}.jpg")
             self.tracker.evaluation_dict["orientation/yaw_std"] = float(preds[:, 0].std())
-        else:
+            if self.is_writer:
+                plot_hist([preds[:, 0], preds[:, 1], preds[:, 2]], title=f"orientation @ iter {i}",
+                          labels=["yaw", "pitch", "roll"], xlabel="degrees",
+                          save_path=gdir / f"orientation_{i:06d}.jpg")
+        elif self.is_writer:
             counts = np.bincount(preds.astype(int), minlength=len(EXPRESSION_CLASSES))
             plot_bar(counts, list(EXPRESSION_CLASSES), title=f"expression classes @ iter {i}",
                      save_path=gdir / f"expression_{i:06d}.jpg")
@@ -586,7 +619,7 @@ class GeneratorTrainer:
                 last_layer_only=cfg.get("last_layer_separability_only", True),
                 return_latents=True, device=self.device)
             self.tracker.register_separability(i, al.name, stats)
-            if self.save_dir is not None:
+            if self.save_dir is not None and self.is_writer:
                 # worst_pairs rows are (signature, query): signatures on the
                 # even latent rows, queries on the odd ones
                 rows = [r for sig, qry in stats[-1]["worst_pairs"][:4] for r in (2 * sig, 2 * qry + 1)]
@@ -669,7 +702,10 @@ class GeneratorTrainer:
         ``<name>.ckpt``) in the JAX ``GANTrainState`` layout. The host copy
         is made here, before the next step; the encode and the atomic write
         run on a worker, unless ``block`` (then every queued save is waited
-        for and the path returned). Otherwise returns the save's future."""
+        for and the path returned). Otherwise returns the save's future.
+        Only rank 0 writes; the others return None."""
+        if not self.is_writer:
+            return None
         tree = gan_state_to_flax(self.state, self.seed)
         fut = ckpt_lib.save_checkpoint_async(Path(self.save_dir) / "checkpoint", tree, step, name=name)
         if block:

@@ -38,6 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gan_control_torch.utils import collectives
+
 SYM6 = np.array(
     [
         0.015404109327027373, 0.0034907120842174702, -0.11799011114819057,
@@ -249,10 +251,13 @@ def apply_color(img: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def augment(img: torch.Tensor, p, generator: torch.Generator) -> torch.Tensor:
     """The ADA pipeline on NHWC images: a geometric, then a colour
-    transform, each drawn from ``generator`` at strength ``p``."""
+    transform, each drawn from ``generator`` at strength ``p``; inside
+    ``collectives.sharded_batch`` both are drawn at the global batch, of
+    which the rank keeps its rows."""
     b, h, w, _ = img.shape
-    img = apply_affine(img, sample_affine(generator, p, b, h, w))
-    return apply_color(img, sample_color(generator, p, b))
+    n, rows = collectives.global_batch(b)
+    img = apply_affine(img, sample_affine(generator, p, n, h, w)[rows])
+    return apply_color(img, sample_color(generator, p, n)[rows])
 
 
 def ada_p_update(p: torch.Tensor, r_t: torch.Tensor, ada_target: float, n_pred: int,

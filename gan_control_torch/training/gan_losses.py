@@ -8,6 +8,10 @@
     sample with n ~ N(0, 1/(H W)); the penalty is the squared deviation from
     a running mean that is NOT detached inside the penalty.
 
+Inside ``utils.collectives.sharded_batch`` the path-length noise is drawn
+at the global batch (the rank keeps its rows) and the running mean moves by
+the global batch's mean path length.
+
 Both regularizers take their input gradient with
 ``torch.autograd.grad(create_graph=True)``, so the caller's ``backward``
 differentiates through the first backward (the kernels' Functions are
@@ -20,6 +24,8 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from gan_control_torch.utils import collectives
 
 
 def d_logistic_loss(real_pred: torch.Tensor, fake_pred: torch.Tensor) -> torch.Tensor:
@@ -64,10 +70,13 @@ def path_length_penalty(
     img = synth_fn(latents)
     if noise is None:
         device = img.device if generator is None else generator.device
-        noise = torch.randn(img.shape, generator=generator, device=device)
+        n, rows = collectives.global_batch(img.shape[0])
+        noise = torch.randn((n,) + tuple(img.shape[1:]), generator=generator, device=device)[rows]
     noise = noise.to(img) / (img.shape[1] * img.shape[2]) ** 0.5
     (grad,) = torch.autograd.grad((img * noise).sum(), latents, create_graph=True)
     path_lengths = torch.sqrt(grad.square().sum(dim=2).mean(dim=1))
-    new_mean = mean_path_length + decay * (path_lengths.mean() - mean_path_length)
+    # the global batch's mean, which the penalty differentiates
+    batch_mean = collectives.gather_batch(path_lengths).mean()
+    new_mean = mean_path_length + decay * (batch_mean - mean_path_length)
     penalty = (path_lengths - new_mean).square().mean()
     return penalty, new_mean.detach(), path_lengths

@@ -18,6 +18,8 @@ from typing import Iterable
 import torch
 from torch import nn
 
+from gan_control_torch.utils import collectives
+
 
 def reg_adam(params: Iterable[torch.Tensor], lr: float, reg_every: int,
              b1: float = 0.0, b2: float = 0.99) -> torch.optim.Adam:
@@ -41,11 +43,14 @@ def optimizer_step(opt: torch.optim.Optimizer) -> None:
     """``opt.step()``, with a zero gradient for every parameter the loss did
     not reach: optax updates every leaf each step, so with this every
     parameter's Adam step count is the optimizer's one count (with b1 = 0
-    such a parameter does not move; its second moment decays)."""
-    for group in opt.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    such a parameter does not move; its second moment decays). Under a
+    process group the gradients are first averaged over ranks
+    (``utils.collectives.mean_grads_``)."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    collectives.mean_grads_(params)
     opt.step()
 
 

@@ -49,6 +49,18 @@ never augment, as the reference's regularisation steps do not.
 
 ``augment_fn`` has the JAX hook's signature, ``(images, p, generator) ->
 images`` (``training.ada.augment``), its draws from ``state.rng``.
+
+Data parallelism: under a process group (``utils/multihost.py``) each rank
+passes its contiguous rows of the global batch (reals, z, explicit noise
+and path noise) and holds the same state; every step runs inside
+``utils.collectives.sharded_batch``, so it computes what one process
+computes at the global batch: draws at the global batch (each rank keeps
+its rows), the minibatch stddev, the arrangement of z and of the
+``same_for_same_id`` noise, the battery's criterion (on the predictors'
+gathered features; no rank runs a predictor on another's rows) and the
+path-length mean over the gathered rows, ``r_t`` and ``ada_p``'s step from
+the global batch, the gradients averaged over ranks before each optimizer
+step, and the metrics as global means, the same on every rank.
 """
 
 from __future__ import annotations
@@ -83,6 +95,7 @@ from gan_control_torch.training.gan_losses import (
 )
 from gan_control_torch.training.ada import ada_p_update
 from gan_control_torch.training.state import GANTrainState, ema_decay, ema_update, optimizer_step
+from gan_control_torch.utils import collectives
 from gan_control_torch.utils.precision import battery_dtype
 
 
@@ -157,10 +170,14 @@ def _gen_images(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | No
     styles = list(z_list)
     arranged = arrange and not cfg.vanilla and spec is not None
     if arranged:
+        # the arrangement pairs rows across the mini-batch chunk: it runs on
+        # the global batch of z, and the rank keeps its rows
+        styles = [collectives.gather_batch(z) for z in styles]
         if arrangement is not None:
             styles = _per_chunk(cfg, styles[:1], lambda c: [apply_arrangement_z(arrangement, c[0])])
         else:
             styles = _per_chunk(cfg, styles, lambda c: re_arrange_z(spec, c))
+        styles = [collectives.own_rows(z) for z in styles]
     g = state.generator
     if arranged and noise is None and g.noise_mode == "same_for_same_id":
         rng = state.rng
@@ -168,6 +185,7 @@ def _gen_images(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | No
                  for s in g.noise_shapes(cfg.batch)]
         noise = _per_chunk(cfg, noise, lambda c: apply_arrangement_noise(arrangement, c)
                            if arrangement is not None else re_arrange_inject_noise(spec, c))
+        noise = [collectives.own_rows(n) for n in noise]
     return g(styles, return_latents=True, inject_index=inject_index, noise=noise,
              generator=state.rng)
 
@@ -175,6 +193,7 @@ def _gen_images(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | No
 AugmentFn = Callable[[torch.Tensor, torch.Tensor, torch.Generator], torch.Tensor]
 
 
+@collectives.sharded_batch()
 def d_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
            real_img: torch.Tensor, z_list: Sequence[torch.Tensor], *,
            noise=None, inject_index: int | None = None,
@@ -191,26 +210,28 @@ def d_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
     state.d_opt.zero_grad(set_to_none=True)
     (loss * (cfg.num_mini / cfg.mini_batch)).backward()
     optimizer_step(state.d_opt)
-    r_t = torch.sign(real_pred.detach()).mean()
-    metrics = {
+    metrics = collectives.mean_metrics({
         "d_loss": loss.detach(),
         "real_score": real_pred.detach().mean(),
         "fake_score": fake_pred.detach().mean(),
-        "r_t": r_t,
-    }
+        "r_t": torch.sign(real_pred.detach()).mean(),
+    })
     if cfg.ada_enabled and cfg.ada_p_fixed == 0:
-        state.ada_p = ada_p_update(state.ada_p, r_t, cfg.ada_target, real_img.shape[0], cfg.ada_length)
+        n_pred = collectives.global_batch(real_img.shape[0])[0]
+        state.ada_p = ada_p_update(state.ada_p, metrics["r_t"], cfg.ada_target, n_pred,
+                                   cfg.ada_length)
         metrics["ada_p"] = state.ada_p
     return metrics
 
 
+@collectives.sharded_batch()
 def d_reg_step(state: GANTrainState, cfg: TrainStepConfig, real_img: torch.Tensor) -> dict:
     d = state.discriminator
     r1 = r1_penalty(lambda x: d(x)[0], real_img)
     state.d_opt.zero_grad(set_to_none=True)
     (cfg.r1 / 2.0 * r1 * cfg.d_reg_every).backward()
     optimizer_step(state.d_opt)
-    return {"d_r1_loss": r1.detach()}
+    return collectives.mean_metrics({"d_r1_loss": r1.detach()})
 
 
 @contextlib.contextmanager
@@ -236,11 +257,22 @@ def _attr_losses_for_batch(
     """Sum of the contrastive losses over ``images`` (NHWC), each the mean
     over the ``num_mini`` mini-batch chunks, and each loss as a metric
     ``g_<name>``. With ``arrangement`` (its tables as tensors on the images'
-    device) the pairs come from its masks instead of the spec's slots."""
+    device) the pairs come from its masks instead of the spec's slots.
+    The criterion reads the features of the global batch: inside
+    ``collectives.sharded_batch`` each layer it weighs is gathered over the
+    ranks (a layer of weight 0, which it skips, stands in as zeros)."""
     images = images.to(dtype)
-    mb = images.shape[0] // num_mini
+    n_rows = collectives.global_batch(images.shape[0])[0]
+    mb = n_rows // num_mini
+
+    def global_features(feats, al):
+        if not collectives.sharded():
+            return feats
+        return [collectives.gather_batch(f) if w else f.new_zeros((n_rows, 1))
+                for f, w in zip(feats, al.cfg.weights)]
 
     def chunked_contrastive(feats, al):
+        feats = global_features(feats, al)
         loss_al = torch.zeros((), dtype=torch.float32, device=images.device)
         for k in range(num_mini):
             chunk = [f[k * mb : (k + 1) * mb].float() for f in feats]
@@ -266,6 +298,10 @@ def _attr_losses_for_batch(
     for al in attr_losses:
         if al.share_key is not None:
             loss_al = chunked_contrastive(al.extract_fn(shared[al.share_key]), al)
+        elif collectives.sharded():
+            # the gather stays outside the checkpoint, whose recompute in
+            # the backward would issue it again
+            loss_al = chunked_contrastive(run(al.feature_fn, predictors[al.name], images), al)
         else:
             loss_al = run(lambda pp, imgs, al=al: chunked_contrastive(al.feature_fn(pp, imgs), al),
                           predictors[al.name], images)
@@ -274,6 +310,7 @@ def _attr_losses_for_batch(
     return total, metrics
 
 
+@collectives.sharded_batch()
 def g_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
            z_list: Sequence[torch.Tensor], *, noise=None,
            inject_index: int | None = None,
@@ -308,9 +345,10 @@ def g_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
     ema_update(state.g_ema, state.generator, ema_decay(cfg.batch, cfg.g_moving_average))
     state.step += 1
     metrics["g_loss"] = total.detach()
-    return metrics
+    return collectives.mean_metrics(metrics)
 
 
+@collectives.sharded_batch()
 def g_reg_step(state: GANTrainState, cfg: TrainStepConfig, z_list: Sequence[torch.Tensor], *,
                noise=None, inject_index: int | None = None,
                path_noise: torch.Tensor | None = None) -> dict:
@@ -341,8 +379,8 @@ def g_reg_step(state: GANTrainState, cfg: TrainStepConfig, z_list: Sequence[torc
         for e, p, p_old in zip(state.g_ema.parameters(), g.parameters(), before):
             e.add_(p - p_old, alpha=one_minus_d)
     state.mean_path_length = new_mean
-    return {
+    return collectives.mean_metrics({
         "g_path_loss": penalty.detach(),
         "g_path_length": path_lengths.detach().mean(),
         "g_mean_path_length": new_mean,
-    }
+    })
