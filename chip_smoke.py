@@ -132,7 +132,7 @@ seconds:
     its data, TensorBoard and the CSV monitor on) with every evaluation due
     at iteration 2: FID against those statistics with a random Inception on
     2304 samples (cut from 50 000), separability and both histograms on the
-    config's 2000; its metrics record, ``best_fid.ckpt``, bucket image,
+    config's 2000, cut to 500); its metrics record, ``best_fid.ckpt``, bucket image,
     plots and annotated matrices, and no "not ported" warning; then a fresh
     ``GeneratorTrainer`` loads ``best_fid.ckpt`` and runs each evaluation
     in-process (separability and the histograms on 500 samples, cut from
@@ -224,13 +224,39 @@ seconds:
     cuDNN off and in float64 (the float64 shift bounded); (d) ``torchrun --nproc_per_node=2 -m
     gan_control_torch.train_controller --iters 20`` against one process in
     this script: the head and the logged metrics;
-22. the script's total seconds; one JSON line of per-kernel numbers over
+22. the blob world, the marge mapping and meshed serving: (a) ``python -m
+    gan_control_torch.tools.convergence --bf16``'s ``run`` (600
+    iterations, 32 px, batch 8, the toy battery) and, beside it in a
+    second process, (b) ``control_fidelity.run`` at 400 / 600 iterations
+    and 2048 rows (cut from 1000 / 2000 / 4096), each process with its
+    counters set to 0 just before its run and read just after (and its
+    launches recorded by shape): (a)'s launches against counts derived
+    from the blob model's modules and the trainer's cadence and the JAX
+    harness's verdict asserted, (b)'s stages' seconds and its verdict
+    (Spearman >= 0.9 in every control dimension, measured spans > 0.05)
+    asserted, while (c) and (d) run in this process; then the median of a
+    few plain iterations of a fresh blob trainer and the device time by
+    kernel of one more; (c) configs/ffhq.json with ``marge_fc`` at full width
+    through ``Inference``: one batch-8 bf16 generation with its launches
+    against the modules (7 x 4 split + 4 shared mapping layers, 15
+    StyledConvs, 7 skips) and its synced median; a size-32 marge
+    ``g_step`` card against CPU (f32, TF32 off, TRAIN_PARITY_RTOL); (d)
+    ``ServingController(mesh=("cuda:0", "cuda:0"))`` on phase 15's
+    directory: an indivisible ladder refused, each replica's capture at
+    buckets 2, 8 and 64 against the derived launches, the pools' memory
+    against one device's, images and w against the one-device controller
+    at the same bucket with static and row noise (bf16 within 2^-7 of max;
+    f32 with TF32 off within 2e-5), the p50 of requests of 8 and 64 against
+    one device (alternated) and each replica's replay; then every (kernel,
+    shape, dtype) that these paths launched, forward and backward against
+    the plain version, with its times and bound;
+23. the script's total seconds; one JSON line of per-kernel numbers over
     ``train(5)``, the phase-2 launches of phases 10-12, the serving
     launches of phase 15, the evaluation launches of phase 16, the AFHQ and
     MetFaces launches of phase 18, the alignment and projection launches
-    of phases 19-20 and the two ranks' launches of phase 21b (launches,
-    times and bounds summed over the seven), then the card's line and the
-    result line.
+    of phases 19-20, the two ranks' launches of phase 21b and phase 22's
+    launches (launches, times and bounds summed over the eight), then the
+    card's line and the result line.
 
 Times, per launch at each shape and summed over a path's launches:
 "host-rate" is the mean over back-to-back eager calls between two CUDA
@@ -714,7 +740,9 @@ def g_counts(g) -> tuple[int, int, int]:
     that run blur2x_up) of a generator."""
     from gan_control_torch.models.blocks import EqualLinear, StyledConv
 
-    n_map = sum(isinstance(m, EqualLinear) and m.activation == "fused_lrelu" for m in g.style.modules())
+    # the mapping's layers, whichever mapping: the only EqualLinears with the
+    # fused activation in G (the modulations have none)
+    n_map = sum(isinstance(m, EqualLinear) and m.activation == "fused_lrelu" for m in g.modules())
     n_conv = sum(isinstance(m, StyledConv) for m in g.modules())
     return n_map, n_conv, len(g.to_rgbs)
 
@@ -1378,12 +1406,20 @@ def grads_of(fn, ins, gen, order2: bool):
     return res
 
 
+# (kernel, shape, dtype, static args) -> (errors, whether they include the
+# second order, per-launch times or None): an earlier path's check of the
+# same launch, which a later path's totals reuse
+CHECKED: dict = {}
+
+
 def train_kernel_phase(seen: Counter, label: str = f"train({TRAIN_ITERS})", both_dtypes: bool = True) -> dict:
     """Phase 8: per recorded (kernel, shape, dtype, args), forward and
     backward (and, once per kernel pair, the second order) against the
     plain version in f32 and bf16 (with ``both_dtypes``, else at the path's
-    dtype alone); times at the path's dtype. Returns per-kernel totals over
-    the recorded launches (``label`` names them)."""
+    dtype alone); times at the path's dtype. A launch that an earlier call
+    checked and timed (CHECKED) is not run again: its line says "checked
+    above" and its numbers count in this path's totals. Returns per-kernel
+    totals over the recorded launches (``label`` names them)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     totals = new_totals(KERNELS)
@@ -1392,30 +1428,46 @@ def train_kernel_phase(seen: Counter, label: str = f"train({TRAIN_ITERS})", both
     for case, ((name, shape, path_dtype, args), count) in enumerate(
             sorted(seen.items(), key=lambda kv: str(kv[0]))):
         for dtype in ((torch.float32, torch.bfloat16) if both_dtypes else (path_dtype,)):
-            seed = 1000 * case + (dtype == torch.bfloat16)
-            ins, fn, plain, launch, library = kernel_case(name, shape, dtype, args,
-                                                          torch.Generator(device="cuda").manual_seed(seed))
-            pair = "blur2x" if name.startswith("blur2x") else name
-            order2 = pair not in second_done and dtype == torch.float32 and \
-                int(np.prod(shape)) <= (1 << 22)
-            got = grads_of(fn, ins, torch.Generator(device="cuda").manual_seed(1), order2)
-            want = grads_of(plain, ins, torch.Generator(device="cuda").manual_seed(1), order2)
-            errs = []
-            for i, (g, w) in enumerate(zip(got, want)):
-                err, scale = max_err(g, w)
-                rtol = KERNEL_RTOL[dtype] if i == 0 else GRAD_RTOL[dtype]
-                if not (err <= rtol * max(1.0, scale) and bool(torch.isfinite(g).all())):
-                    fail(f"{name} {list(shape)} {dtype} {args}: output {i} disagrees with the plain "
-                         f"version: {err} > {rtol * max(1.0, scale)}")
-                errs.append(err)
-            if order2:
-                second_done.add(pair)
+            key = (name, shape, dtype, args)
+            errs, order2, t = CHECKED.get(key, (None, False, None))
+            if errs is None:
+                seed = 1000 * case + (dtype == torch.bfloat16)
+                ins, fn, plain, launch, library = kernel_case(name, shape, dtype, args,
+                                                              torch.Generator(device="cuda").manual_seed(seed))
+                pair = "blur2x" if name.startswith("blur2x") else name
+                order2 = pair not in second_done and dtype == torch.float32 and \
+                    int(np.prod(shape)) <= (1 << 22)
+                got = grads_of(fn, ins, torch.Generator(device="cuda").manual_seed(1), order2)
+                want = grads_of(plain, ins, torch.Generator(device="cuda").manual_seed(1), order2)
+                errs = []
+                for i, (g, w) in enumerate(zip(got, want)):
+                    err, scale = max_err(g, w)
+                    rtol = KERNEL_RTOL[dtype] if i == 0 else GRAD_RTOL[dtype]
+                    if not (err <= rtol * max(1.0, scale) and bool(torch.isfinite(g).all())):
+                        fail(f"{name} {list(shape)} {dtype} {args}: output {i} disagrees with the plain "
+                             f"version: {err} > {rtol * max(1.0, scale)}")
+                    errs.append(err)
+                if order2:
+                    second_done.add(pair)
+                if dtype == path_dtype:
+                    with torch.no_grad():
+                        t = time_case(launch, lambda: plain(*ins), library)
+                del ins, got, want
+                checked = ""
+            else:
+                checked = "checked above: "
+                if t is None and dtype == path_dtype:  # checked, not timed, at this dtype
+                    ins, _, plain, launch, library = kernel_case(name, shape, dtype, args,
+                                                                 torch.Generator(device="cuda").manual_seed(case))
+                    with torch.no_grad():
+                        t = time_case(launch, lambda: plain(*ins), library)
+                    del ins
+            CHECKED[key] = (errs, order2, t)
+            n_grads = len(errs) - 1 - order2
             line = (f"kernel {name} {list(shape)} {str(dtype)[6:]} {args} (x{count} in {label} in "
-                    f"{str(path_dtype)[6:]}): errors fwd {errs[0]:.3g} bwd "
-                    f"{max(errs[1:len(ins) + 1]):.3g}" + (f" 2nd {errs[-1]:.3g}" if order2 else ""))
+                    f"{str(path_dtype)[6:]}): {checked}errors fwd {errs[0]:.3g} bwd "
+                    f"{max(errs[1:n_grads + 1]):.3g}" + (f" 2nd {errs[-1]:.3g}" if order2 else ""))
             if dtype == path_dtype:
-                with torch.no_grad():
-                    t = time_case(launch, lambda: plain(*ins), library)
                 t_b, by = bound(name, shape, dtype, args)
                 line += "; per launch " + timing_text(t, t_b, by, LIBRARY.get(name))
                 add_to_totals(totals[name], count, t, t_b, by)
@@ -1425,7 +1477,6 @@ def train_kernel_phase(seen: Counter, label: str = f"train({TRAIN_ITERS})", both
                 if name == "blur_sep":
                     add_to_level(levels, shape, args, count, t, t_b)
             log(line)
-            del ins, got, want
     missing = sorted({"fused_bias_act", "fused_bias_act_grad", "blur_sep", "blur2x"} - second_done)
     if missing and both_dtypes:
         fail(f"no second-order check ran for {missing}")
@@ -2326,13 +2377,16 @@ SWEEP_CHUNKS = 12  # timed chunks per chunk size
 FID_RECOMPUTE_RTOL = 1e-9
 # in-process separability and histogram samples (the command line keeps the config's 2000)
 EVAL_INPROCESS_SAMPLES = 500
+# the command line's separability and histograms (cut from the config's 2000
+# for phase 22, PERF.md §4)
+EVAL_CLI_SAMPLES = 500
 
 
 def eval_config(folder: Path, stats_path: Path, results_dir: Path) -> dict:
     """configs/ffhq.json at full width with every evaluation, TensorBoard and
     the CSV monitor on, due at iteration EVAL_AT: FID against
     ``stats_path`` with a random Inception and FID_SAMPLES samples,
-    separability and both histograms at the config's 2000 samples, the
+    separability and both histograms at EVAL_CLI_SAMPLES samples, the
     sample images at 0 and EVAL_AT, data from ``folder``."""
     config = json.loads((CONFIGS / "ffhq.json").read_text())
     config["results_dir"] = str(results_dir)
@@ -2344,9 +2398,9 @@ def eval_config(folder: Path, stats_path: Path, results_dir: Path) -> dict:
     ec = config["evaluation_config"]
     ec["fid"].update(inception_weights="__random__", inception_stat_path=str(stats_path),
                      fid_interval=EVAL_AT, num_of_samples=FID_SAMPLES)
-    ec["separability"]["separability_interval"] = EVAL_AT
+    ec["separability"].update(separability_interval=EVAL_AT, num_of_samples=EVAL_CLI_SAMPLES)
     for kind in ("orientation_hist", "expression_bar"):
-        ec[kind][f"{kind}_interval"] = EVAL_AT
+        ec[kind].update({f"{kind}_interval": EVAL_AT, "num_of_samples": EVAL_CLI_SAMPLES})
     return config
 
 
@@ -2463,7 +2517,7 @@ def evaluation_phase(build_root: Path) -> tuple[Counter, dict]:
         log(f"evaluation train_generator: configs/ffhq.json at full width, batch 16, the six-loss "
             f"battery at random init, {EVAL_ITERS} iterations from {EVAL_IMAGES} PNGs, every "
             f"evaluation at iteration {EVAL_AT} (FID on {FID_SAMPLES} samples, cut from 50 000; "
-            f"separability and both histograms on 2000), {secs:.1f} s in its process; fid "
+            f"separability and both histograms on {EVAL_CLI_SAMPLES}), {secs:.1f} s in its process; fid "
             f"{rec['fid']:.6f}, best_fid {rec['best_fid']:.6f}, separability margin "
             f"{rec['separability/embedding_loss/l0_margin']:.6g}, yaw std "
             f"{rec['orientation/yaw_std']:.6g}; files {len(files)} present; TensorBoard events "
@@ -3890,6 +3944,425 @@ def distributed_phase(build_root: Path) -> tuple[Counter, dict]:
     return seen, counts
 
 
+# ---------------------------------------------------------------------------
+# the blob world, the marge mapping and meshed serving (phase 22)
+# ---------------------------------------------------------------------------
+
+BLOB_ITERS = 600  # convergence's default
+BLOB_EVAL_EVERY = 100
+# control_fidelity: phase-1 iterations, each head's iterations, table rows
+# (cut from the harness's 1000 / 2000 / 4096, whose committed card run is
+# gan_control_torch/tools/results/control_fidelity.jsonl)
+FIDELITY = (400, 600, 2048)
+MARGE_REPS = 5
+MESH = ("cuda:0", "cuda:0")  # two replicas sharing the one card
+MESH_BUCKETS = (2, 8, 64)
+MESH_F32_BUCKETS = (2, 8)
+MESH_SIZES = (5, 8, 64)  # 5 pads to bucket 8 (4 + 1 rows over the replicas)
+MESH_LATENCY_SIZES = (8, 64)
+MESH_REQUESTS = 10
+# each replica's rows against one device at the replica's batch, f32 with
+# TF32 off and cuDNN's deterministic algorithms (the JAX package's bound for
+# meshed against one-device serving)
+MESH_RTOL = 2e-5
+
+
+def blob_counts(iters: int, eval_every: int) -> dict:
+    """The port's kernel launches of ``convergence.run(iters, eval_every)``,
+    derived from the blob model's modules: each step kind as
+    ``expected_step_counts`` derives it, on the trainer's cadence (R1 when
+    ``i % 16 == 0``, path length when ``i % 4 == 0``), and the evaluations'
+    forwards (at initialisation and every ``eval_every``: two generators,
+    four sweeps of four chunks each; the toy battery launches none)."""
+    from gan_control_torch.models.factory import build_discriminator, build_generator, build_group_spec
+    from gan_control_torch.tools import convergence
+
+    config = convergence.toy_config(iters)
+    g = build_generator(config, build_group_spec(config), device="cpu")
+    d = build_discriminator(config, device="cpu")
+    per = expected_step_counts(g, d, 2)
+    n_map, n_conv, n_up = g_counts(g)
+    tc = config["training_config"]
+    runs = {"d_step": iters, "g_step": iters,
+            "d_reg_step": sum(i % tc["d_reg_every"] == 0 for i in range(iters)),
+            "g_reg_step": sum(i % tc["g_reg_every"] == 0 for i in range(iters))}
+    forwards = (1 + iters // eval_every) * 2 * 4 * (convergence.N_EVAL // convergence.EVAL_CHUNK)
+    total = {n: forwards * c for n, c in row(n_map + n_conv, 0, n_up, 0).items()}
+    for kind, times in runs.items():
+        for n, c in per[kind].items():
+            total[n] += times * c
+    return total
+
+
+def blob_child(which: str, out: str) -> None:
+    """Runs in a fresh interpreter (``python -c``, from :func:`blob_phase`):
+    one blob-world harness on the card, ``which`` "convergence" (bf16, 600
+    iterations) or "fidelity" (FIDELITY), with the launch recorder on and
+    the counters set to 0 just before it and read just after. Writes its
+    records, counts, recorded shapes and seconds to the JSON file ``out``."""
+    from gan_control_torch.tools import control_fidelity, convergence
+
+    root = Path(out).parent
+    records: list = []
+    if which == "convergence":
+        def run():
+            records.extend(convergence.run(iters=BLOB_ITERS, eval_every=BLOB_EVAL_EVERY, seed=0,
+                                           out_path=root / "convergence_bf16.jsonl", bf16=True))
+    else:
+        iters, ctrl_iters, rows = FIDELITY
+
+        def run():
+            records.extend(control_fidelity.run(iters=iters, ctrl_iters=ctrl_iters, n_samples=rows,
+                                                workdir=root / "ctrl_fid", out_path=root / "control_fidelity.jsonl"))
+    seen: Counter = Counter()
+    t0 = time.perf_counter()
+    counts = launches_of(run, seen)
+    Path(out).write_text(json.dumps({
+        "records": records, "counts": counts, "seconds": time.perf_counter() - t0,
+        "seen": [[n, list(shape), str(dtype), args, c] for (n, shape, dtype, args), c in seen.items()]}))
+
+
+def _tuples(x):
+    return tuple(_tuples(v) for v in x) if isinstance(x, list) else x
+
+
+def start_blob_children(build_root: Path) -> dict:
+    """Phase 22a-b's two processes (:func:`blob_child`), started side by
+    side: each harness is host-bound and the card idles ~90 % of a plain
+    iteration. Returns {which: process}."""
+    import shutil
+
+    root = build_root / "blob"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    procs = {}
+    for which in ("convergence", "fidelity"):
+        with open(root / f"{which}.log", "w") as f:
+            procs[which] = subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.blob_child({which!r}, "
+                 f"{str(root / (which + '.json'))!r})"], stdout=f, stderr=subprocess.STDOUT, cwd=REPO)
+    return procs
+
+
+def blob_phase(build_root: Path, procs: dict, seen: Counter, counts: dict) -> None:
+    """Phase 22a-b: waits for the two blob-world processes and checks what
+    they wrote; then times plain iterations of a fresh blob trainer."""
+    from gan_control_torch.tools import control_fidelity, convergence
+
+    root = build_root / "blob"
+    res = {}
+    with Phase("blob-world harnesses, the wait for their processes"):
+        try:
+            for which, proc in procs.items():
+                rc = proc.wait(timeout=1100)
+                if rc != 0:
+                    tail = (root / f"{which}.log").read_text().splitlines()[-30:]
+                    fail(f"the blob-world {which} process exited {rc}; last lines:\n" + "\n".join(tail))
+                res[which] = json.loads((root / f"{which}.json").read_text())
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    for r in res.values():
+        for n, shape, dtype, args, c in r["seen"]:
+            seen[(n, tuple(shape), getattr(torch, dtype.split(".")[1]), _tuples(args))] += c
+
+    records, got = res["convergence"]["records"], res["convergence"]["counts"]
+    v = convergence.verdict(records)
+    want = blob_counts(BLOB_ITERS, BLOB_EVAL_EVERY)
+    log(f"blob convergence bf16 first record: {json.dumps(records[0])}")
+    log(f"blob convergence bf16 last record: {json.dumps(records[-1])}")
+    log(f"blob convergence bf16: {BLOB_ITERS} iterations and {len(records)} evaluations in "
+        f"{res['convergence']['seconds']:.1f} s ({1e3 * records[-1]['seconds'] / BLOB_ITERS:.2f} ms per "
+        f"iteration with the evaluations, host clock, beside the control-fidelity process and (c)-(d)); verdict "
+        f"{json.dumps(v)}; launches {got}, derived {want}")
+    if got != want:
+        fail(f"the blob-world run launched {got}, derived {want}")
+    if not convergence.passed(v):
+        fail(f"blob-world convergence missed the JAX harness's verdict: {v}")
+    add_counts(counts, got)
+
+    out, got = res["fidelity"]["records"], res["fidelity"]["counts"]
+    iters, ctrl_iters, rows = FIDELITY
+    last = 0.0
+    for rec in out[:-1]:
+        log(f"control fidelity stage {rec['stage']}: {rec['seconds'] - last:.1f} s "
+            + json.dumps({k: v for k, v in rec.items() if k not in ("stage", "seconds")}))
+        last = rec["seconds"]
+    v = out[-1]
+    log(f"control fidelity ({iters} / {ctrl_iters} iterations, {rows} rows): {res['fidelity']['seconds']:.1f} s; "
+        f"Spearman means color {v['color_spearman_means']} position {v['position_spearman_means']}; verdict "
+        f"{json.dumps(v)}; launches {got}")
+    if not control_fidelity.passed(v):
+        fail(f"control fidelity missed its verdict: {v}")
+    if not all(got[n] for n in KERNELS):
+        fail(f"the control-fidelity run left a kernel unlaunched: {got}")
+    add_counts(counts, got)
+
+    with Phase("blob-world plain iterations"):
+        trainer = convergence.make_trainer(BLOB_ITERS, 0, torch.device("cuda"), bf16=True)
+        trainer.one_iteration(0)  # every step kind once, outside the timing
+        ms = plain_iteration_ms(trainer)
+        log(f"blob plain iteration (d_step + g_step, bf16, batch {convergence.BATCH}): "
+            f"{[round(m, 3) for m in ms]} ms (synced), median {statistics.median(ms):.3f} ms")
+        profile_phase("blob plain iteration", lambda: trainer.one_iteration(7), statistics.median(ms))
+        trainer.close()
+
+
+def marge_config(size: int | None = None) -> dict:
+    config = json.loads((CONFIGS / "ffhq.json").read_text())
+    config["model_config"].update(split_fc=False, marge_fc=True)
+    if size is not None:
+        config["model_config"].update(size=size, max_channels=64, mixed_precision=False)
+    return config
+
+
+def marge_phase(build_root: Path, seen: Counter, counts: dict) -> None:
+    """Phase 22c: FFHQ-512 with the marge mapping through ``Inference``, and
+    a size-32 marge ``g_step`` card against CPU."""
+    import shutil
+
+    from gan_control_torch.inference.inference import Inference
+    from gan_control_torch.models.factory import build_discriminator, build_generator, build_group_spec
+    from gan_control_torch.training import train_step as ts
+    from gan_control_torch.training.state import init_gan_state
+    from gan_control_torch.utils.flax_bridge import save_flax_checkpoint
+
+    gdir = build_root / "marge" / "generator"
+    if gdir.parent.exists():
+        shutil.rmtree(gdir.parent)
+    gdir.mkdir(parents=True)
+    config = marge_config()
+    with Phase("marge generation"):
+        (gdir / "args.json").write_text(json.dumps(config, indent=2))
+        save_flax_checkpoint(gdir / "checkpoint", "g_ema",
+                             build_generator(config, build_group_spec(config), device="cpu", seed=0))
+        torch.backends.cudnn.allow_tf32 = True  # the defaults; synthesis is bf16
+        torch.backends.cuda.matmul.allow_tf32 = False
+        inf = Inference(gdir)
+        n_map, n_conv, n_up = g_counts(inf.model)
+        want = {"fused_bias_act": n_map + n_conv, "blur2x_up": n_up}
+        n_groups = len(inf.spec.names)
+        if n_map != n_groups * 4 + 4:
+            fail(f"the marge mapping has {n_map} fused layers, not {n_groups} x 4 + 4")
+        z = np.random.default_rng(50).standard_normal((BATCH, 512)).astype(np.float32)
+        images = []
+        got = launches_of(lambda: images.append(inf.gen_batch(batch_size=BATCH, latent=z)[0]), seen)
+        img = images[0]
+        got_nz = {k: v for k, v in got.items() if v}
+        ms = synced_ms(lambda: inf.gen_batch(batch_size=BATCH, latent=z), MARGE_REPS)
+        log(f"marge generation: FFHQ-512 {inf.model.dtype}, batch {BATCH}, {n_groups} x 4 split + 4 shared "
+            f"mapping layers; launches {got_nz}, derived {want}; median {statistics.median(ms):.3f} ms "
+            f"(synced, {MARGE_REPS} calls)")
+        if got_nz != want:
+            fail(f"marge generation launched {got_nz}, derived {want}")
+        if tuple(img.shape) != (BATCH, 512, 512, 3) or not bool(torch.isfinite(img).all()):
+            fail(f"marge generation gave {tuple(img.shape)} or non-finite values")
+        add_counts(counts, got)
+        del inf, images, img
+        torch.cuda.empty_cache()
+
+    with Phase("marge g_step card vs cpu"):
+        torch.backends.cudnn.allow_tf32 = False
+        config = marge_config(32)
+        tc = config["training_config"]
+        spec = build_group_spec(config)
+        cfg = ts.TrainStepConfig(batch=tc["batch"], mini_batch=tc["mini_batch"])
+        rng = np.random.default_rng(51)
+        b = tc["batch"]
+        z = torch.from_numpy(rng.standard_normal((b, 512)).astype(np.float32))
+        g0 = build_generator(config, spec, device="cpu", seed=0)
+        d0 = build_discriminator(config, device="cpu", seed=1)
+        noise = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32)) for sh in g0.noise_shapes(b)]
+        with torch.no_grad():
+            for m in g0.modules():  # non-zero noise weights, so the injection counts
+                if type(m).__name__ == "NoiseInjection":
+                    m.weight.fill_(0.3)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            st = init_gan_state(copy.deepcopy(g0).to(dev), copy.deepcopy(d0).to(dev), tc)
+
+            def step(st=st, dev=dev):
+                out[dev] = ({k: float(v) for k, v in ts.g_step(
+                    st, cfg, spec, (z.to(dev),), noise=[n.to(dev) for n in noise]).items()},
+                    {n: t.grad.detach().cpu() for n, t in st.generator.named_parameters()
+                     if t.grad is not None})
+
+            if dev == "cuda":
+                launches_of(step, seen)
+            else:
+                step()
+        (mc, gc), (mg, gg) = out["cpu"], out["cuda"]
+        loss_err = max(abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])) for k in mc)
+        worst, worst_name = worst_grad_err(gc, gg)
+        n_mapping = sum(n.startswith("style_") for n in gc)
+        log(f"marge g_step card vs cpu (size 32, f32, TF32 off): losses {mc} (card {mg}), worst loss rel err "
+            f"{loss_err:.3g}; {len(gc)} G gradients ({n_mapping} of the mapping), worst rel err {worst:.3g} "
+            f"({worst_name}), tol {TRAIN_PARITY_RTOL}")
+        if gc.keys() != gg.keys() or n_mapping != 2 * (len(spec.names) * 4 + 4):
+            fail(f"marge g_step: gradients of {sorted(gc)[:4]}... on the CPU, {len(gg)} on the card")
+        if loss_err > TRAIN_PARITY_RTOL or worst > TRAIN_PARITY_RTOL:
+            fail("marge g_step: card and CPU disagree")
+
+
+def replica_blocks(meshed, one, n: int, z: np.ndarray, ctl: dict, static: bool, label: str, rtol: float):
+    """A meshed request of ``n`` rows against the one-device controller
+    ``one`` at each replica's batch: replica ``k``'s padded rows ``[k b/m,
+    (k + 1) b/m)`` (zeros past the request, as the replica computes them)
+    as one request of ``b/m`` rows; with row noise replica 0's alone, whose
+    rows are the global rows. Returns the meshed images and w."""
+    m = len(meshed.mesh)
+    b = meshed.bucket_for(n)
+    h = b // m
+    zp = np.zeros((b, z.shape[1]), np.float32)
+    zp[:n] = z[:n]
+    cp = {g: np.concatenate([v[:n], np.zeros((b - n, v.shape[1]), np.float32)]) for g, v in ctl.items()}
+    noise = "static noise" if static else "row noise"
+    got, _, got_w = meshed.generate(latent=z[:n], static_noise=static, generator=torch.Generator().manual_seed(n),
+                                    **{g: v[:n] for g, v in ctl.items()})
+    for k in (range(m) if static else (0,)):
+        rows = slice(k * h, (k + 1) * h)
+        want, _, want_w = one.generate(latent=zp[rows], static_noise=static,
+                                       generator=torch.Generator().manual_seed(n), **{g: v[rows] for g, v in cp.items()})
+        keep = max(0, min(n - k * h, h))
+        if keep:
+            held_to(f"meshed serving n {n} {noise} {label} replica {k} rows vs one device at {h} rows: image",
+                    got[rows][:keep], want[:keep], rtol)
+            held_to(f"meshed serving n {n} {noise} {label} replica {k} rows vs one device at {h} rows: w",
+                    got_w[rows][:keep], want_w[:keep], rtol)
+    return got, got_w
+
+
+def meshed_serving_phase(build_root: Path, seen: Counter, counts: dict) -> None:
+    """Phase 22d: ``ServingController(mesh=...)`` on phase 15's FFHQ-512
+    directory, two replicas sharing the card, against one device. The
+    card's synthesis moves with the batch size (other cuDNN and cuBLAS
+    algorithms at b and b/m rows), so each replica's rows are held to one
+    device at the replica's batch; the distance to one device at the same
+    bucket, that batch shift, is printed. The f32 check runs with cuDNN's
+    deterministic algorithms: without them two replays of one f32 graph
+    differ by a few 1e-5 on the card."""
+    from gan_control_torch.inference.row_noise import row_noise
+    from gan_control_torch.inference.serving import ServingController
+    from gan_control_torch.models.blocks import EqualLinear
+    from gan_control_torch.tools.serving_bench import request_latency
+
+    ctrl_dir = build_root / "serving" / "ffhq_controller"
+    m = len(MESH)
+    try:
+        ServingController(ctrl_dir, buckets=(3, 8), mesh=MESH)
+    except ValueError as e:
+        if "not divisible" not in str(e):
+            raise
+        log(f"meshed serving: an indivisible ladder raises: {e}")
+    else:
+        fail("a ladder that the mesh does not divide was accepted")
+
+    with Phase("meshed serving"):
+        torch.backends.cudnn.allow_tf32 = True  # the defaults; synthesis is bf16
+        torch.backends.cuda.matmul.allow_tf32 = False
+        meshed = ServingController(ctrl_dir, buckets=MESH_BUCKETS, mesh=MESH)
+        one = ServingController(ctrl_dir, buckets=sorted(set(MESH_BUCKETS) | {b // m for b in MESH_BUCKETS}))
+        n_map, n_conv, n_up = g_counts(meshed.model)
+        n_head = sum(isinstance(mod, EqualLinear) and mod.activation == "fused_lrelu"
+                     for fc in meshed.fc_controls.values() for mod in fc.modules())
+        want = {"fused_bias_act": n_map + n_head + n_conv, "blur2x_up": n_up}
+        held = {}
+        for label, serve in (("meshed", meshed), ("one-device", one)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved()
+            got = launches_of(serve.warmup, seen)
+            torch.cuda.empty_cache()
+            held[label] = torch.cuda.memory_reserved() - reserved0
+            if label == "meshed":
+                for key, entry in sorted(serve._serve_cache.items(), key=lambda kv: kv[0][4]):
+                    per = [{k: v for k, v in r.launches.items() if v} for r in entry.replicas]
+                    log(f"meshed serving capture bucket {key[4]}: {len(entry.replicas)} replicas of "
+                        f"{entry.rows} rows, {entry.capture_seconds:.3f} s, launches {per}")
+                    if per != [want] * m:
+                        fail(f"a replica's capture at bucket {key[4]} launched {per}, derived {want}")
+                # each capture runs the request once eagerly first (the
+                # side-stream warm-up), then once captured
+                if {k: v for k, v in got.items() if v} != {k: 2 * len(MESH_BUCKETS) * m * v
+                                                           for k, v in want.items()}:
+                    fail(f"meshed warmup launched {got}")
+                add_counts(counts, got)
+        log(f"meshed serving memory: {held['meshed'] / 2**30:.3f} GiB held by the {m} replicas' pools and "
+            f"buffers at buckets {MESH_BUCKETS}; {held['one-device'] / 2**30:.3f} GiB by one device's at "
+            f"{one.buckets}")
+        ctl64 = controls(64, 60)
+        z64 = np.random.default_rng(61).standard_normal((64, 512)).astype(np.float32)
+        for n in MESH_SIZES:
+            for static in (True, False):
+                got, got_w = replica_blocks(meshed, one, n, z64, ctl64, static, "bf16", KERNEL_RTOL[torch.bfloat16])
+                same, _, same_w = one.generate(latent=z64[:n], static_noise=static,
+                                               generator=torch.Generator().manual_seed(n),
+                                               **{g: v[:n] for g, v in ctl64.items()})
+                log(f"meshed serving n {n} {'static' if static else 'row'} noise bf16 against one device at bucket "
+                    f"{meshed.bucket_for(n)} (the batch shift, not held): image max_abs_err "
+                    f"{float(np.abs(got.astype(np.float64) - same).max()):.4g}, w "
+                    f"{float(np.abs(got_w.astype(np.float64) - same_w).max()):.3g}")
+        # the per-row noise of a replica hashes its global rows
+        shapes = meshed.model.noise_shapes(64)
+        seed = torch.tensor([2**40 + 9], dtype=torch.int64, device="cuda")
+        full = row_noise(seed, shapes)
+        for k in range(m):
+            part = row_noise(seed, [(64 // m, *sh[1:]) for sh in shapes], k * 64 // m)
+            if not all(torch.equal(a[k * 64 // m:(k + 1) * 64 // m], c) for a, c in zip(full, part)):
+                fail(f"replica {k}'s per-row noise is not rows {k * 64 // m}.. of the one-device noise")
+        offsets = {key[4]: [r.fn.row_offset for r in e.replicas] for key, e in meshed._serve_cache.items()}
+        if any(o != [k * b // m for k in range(m)] for b, o in offsets.items()):
+            fail(f"replica row offsets {offsets}")
+        log(f"meshed serving per-row noise: each replica hashes its global rows (bitwise on the card); "
+            f"row offsets by bucket {dict(sorted(offsets.items()))}")
+        for n in MESH_LATENCY_SIZES:
+            ctl = {g: v[:n] for g, v in ctl64.items()}
+            stats = {}
+            for rep in range(2):  # alternated
+                for label, serve in (("meshed", meshed), ("one-device", one)):
+                    stats.setdefault(label, []).append(request_latency(
+                        lambda serve=serve: serve.generate(latent=z64[:n], **ctl)[0], MESH_REQUESTS))
+            key = next(k for k in meshed._serve_cache if k[4] == n and k[2])
+            replay = [replay_ms(r.graph) for r in meshed._serve_cache[key].replicas]
+            one_replay = replay_ms(one._serve_cache[key].graph)
+            log(f"meshed serving latency n {n}: meshed p50 {[round(s['p50_ms'], 3) for s in stats['meshed']]} ms, "
+                f"one-device p50 {[round(s['p50_ms'], 3) for s in stats['one-device']]} ms (alternated, "
+                f"{MESH_REQUESTS} requests each, host clock, request to numpy); replays: replicas "
+                f"{[round(r, 3) for r in replay]} ms, one device {one_replay:.3f} ms (CUDA events)")
+        del meshed, one
+        torch.cuda.empty_cache()
+
+    with Phase("meshed serving f32"):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        try:
+            meshed = ServingController(ctrl_dir, buckets=MESH_F32_BUCKETS, mesh=MESH, dtype=torch.float32)
+            one = ServingController(ctrl_dir, buckets=sorted(set(MESH_F32_BUCKETS) | {b // m for b in MESH_F32_BUCKETS}),
+                                    dtype=torch.float32)
+            z = np.random.default_rng(62).standard_normal((8, 512)).astype(np.float32)
+            ctl = controls(8, 63)
+            for n in (5, 8):
+                for static in (True, False):
+                    res: list = []
+                    launches_of(lambda: res.append(replica_blocks(
+                        meshed, one, n, z, ctl, static, "f32 TF32 off", MESH_RTOL)), seen)
+                    (got, got_w), = res
+                    same, _, same_w = one.generate(latent=z[:n], static_noise=static,
+                                                   generator=torch.Generator().manual_seed(n),
+                                                   **{g: v[:n] for g, v in ctl.items()})
+                    log(f"meshed serving n {n} {'static' if static else 'row'} noise f32 TF32 off against one "
+                        f"device at bucket {meshed.bucket_for(n)} (the batch shift, not held): image max_abs_err "
+                        f"{float(np.abs(got.astype(np.float64) - same).max()):.4g}, w "
+                        f"{float(np.abs(got_w.astype(np.float64) - same_w).max()):.3g}")
+            del meshed, one
+        finally:
+            torch.backends.cudnn.deterministic = False
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4014,13 +4487,27 @@ def main() -> None:
         log(f"distributed totals {n}: launches {counts7[n]} " + totals_text(totals7[n]))
     merge_totals(totals, totals7)
 
+    # 22. the blob world, the marge mapping and meshed serving; the two
+    # blob-world harnesses train in processes of their own meanwhile
+    seen8: Counter = Counter()
+    counts8: dict = {n: 0 for n in KERNELS}
+    blob_procs = start_blob_children(build_root)
+    marge_phase(build_root, seen8, counts8)
+    meshed_serving_phase(build_root, seen8, counts8)
+    blob_phase(build_root, blob_procs, seen8, counts8)
+    with Phase("phase 22 kernels"):
+        totals8 = train_kernel_phase(seen8, "phase 22", both_dtypes=False)
+    for n in KERNELS:
+        log(f"phase 22 totals {n}: launches {counts8[n]} " + totals_text(totals8[n]))
+    merge_totals(totals, totals8)
+
     entries = []
     for n, (route, src, replaces) in KERNELS.items():
         tot = totals[n]
         entries.append({
             "name": n, "route": route, "source": src, "replaces": replaces,
             "launches": counts[n] + counts2[n] + counts3[n] + counts4[n] + counts5[n] + counts6[n]
-            + counts7[n],
+            + counts7[n] + counts8[n],
             "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],

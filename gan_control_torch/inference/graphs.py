@@ -21,8 +21,15 @@ reads at capture (``blur2x_up`` plans its vector phase from them) stay
 right for every replay.
 
 All graphs of one owner draw on one memory pool. That is safe because a
-replay's outputs are copied to the host before the next replay starts:
-another graph's replay may reuse the memory of an earlier graph's outputs.
+replay's outputs are copied to the host before the next replay of that
+pool starts: another graph's replay may reuse the memory of an earlier
+graph's outputs.
+
+:class:`ReplicatedGraphs` runs one request over the replicas of a device
+mesh, each a :class:`BucketGraph` at ``bucket / m`` rows with its own pool:
+replica ``k`` takes the padded rows ``[k b / m, (k + 1) b / m)``, every
+replica's replay is launched before any output is copied to the host (so
+that cards overlap), and the outputs are concatenated in order.
 """
 
 from __future__ import annotations
@@ -101,6 +108,7 @@ class BucketGraph:
     def __init__(self, fn, bucket: int, latent_shape: tuple, control_dims: dict[str, int],
                  device: torch.device, pool=None):
         self.fn = fn
+        self.device = device
         self.bucket = bucket
         self.latent = torch.zeros((bucket, *latent_shape), device=device)
         self.controls = {g: torch.zeros((bucket, d), device=device)
@@ -112,16 +120,18 @@ class BucketGraph:
         self.capture_seconds = 0.0
         if device.type == "cuda":
             t0 = time.perf_counter()
-            self.graph, self.outputs, self.launches = capture(
-                fn, (self.latent, self.controls, self.seed), pool)
-            torch.cuda.synchronize()
+            with torch.cuda.device(device):
+                self.graph, self.outputs, self.launches = capture(
+                    fn, (self.latent, self.controls, self.seed), pool)
+                torch.cuda.synchronize()
             self.capture_seconds = time.perf_counter() - t0
 
-    def __call__(self, latent: torch.Tensor, controls: dict[str, np.ndarray],
-                 seed: torch.Tensor) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """``(images, latent, w)`` of the request's ``n = len(latent)`` rows,
-        as numpy on the host (copied out before the next request can
-        overwrite the outputs)."""
+    def launch(self, latent: torch.Tensor, controls: dict[str, np.ndarray],
+               seed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Fill the buffers with the request's ``n = len(latent)`` rows and
+        replay (eagerly on the CPU); returns ``(images, w)`` of those rows on
+        the device, without waiting for them. The next launch overwrites
+        them."""
         n = latent.shape[0]
         if n > self.bucket or tuple(latent.shape[1:]) != tuple(self.latent.shape[1:]):
             raise ValueError(f"latent {tuple(latent.shape)} does not fit the bucket's "
@@ -139,7 +149,47 @@ class BucketGraph:
             with torch.no_grad():
                 img, w = self.fn(self.latent, self.controls, self.seed)
         else:
-            self.graph.replay()
+            with torch.cuda.device(self.device):
+                self.graph.replay()
             img, w = self.outputs
-        return img[:n].cpu().numpy(), latent.cpu().numpy(), w[:n].cpu().numpy()
+        return img[:n], w[:n]
 
+    def __call__(self, latent: torch.Tensor, controls: dict[str, np.ndarray],
+                 seed: torch.Tensor) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``(images, latent, w)`` of the request's ``n = len(latent)`` rows,
+        as numpy on the host (copied out before the next request can
+        overwrite the outputs)."""
+        img, w = self.launch(latent, controls, seed)
+        return img.cpu().numpy(), latent.cpu().numpy(), w.cpu().numpy()
+
+
+class ReplicatedGraphs:
+    """One request over ``replicas`` (:class:`BucketGraph`s of one bucket
+    size each, in mesh order): see the module docstring. ``bucket`` is the
+    request's, ``launches`` and ``capture_seconds`` the replicas' sums."""
+
+    def __init__(self, replicas: list[BucketGraph]):
+        self.replicas = replicas
+        self.rows = replicas[0].bucket
+        self.bucket = self.rows * len(replicas)
+        self.launches = {k: sum(r.launches.get(k, 0) for r in replicas)
+                         for k in set().union(*(r.launches for r in replicas))}
+        self.capture_seconds = sum(r.capture_seconds for r in replicas)
+
+    def __call__(self, latent: torch.Tensor, controls: dict[str, np.ndarray],
+                 seed: torch.Tensor) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        n = latent.shape[0]
+        if n > self.bucket:
+            raise ValueError(f"a request of {n} rows does not fit the bucket {self.bucket}")
+        outs = []
+        for k, replica in enumerate(self.replicas):
+            rows = slice(k * self.rows, min((k + 1) * self.rows, n))
+            if rows.start >= n:
+                break  # only padding rows left
+            outs.append((rows, replica.launch(latent[rows], {g: v[rows] for g, v in controls.items()}, seed)))
+        # each replica's rows copied into their place in one host array
+        img, w = (torch.empty((n, *t.shape[1:]), dtype=t.dtype) for t in outs[0][1])
+        for rows, (r_img, r_w) in outs:
+            img[rows].copy_(r_img)
+            w[rows].copy_(r_w)
+        return img.numpy(), latent.cpu().numpy(), w.numpy()

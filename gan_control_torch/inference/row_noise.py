@@ -53,17 +53,19 @@ def _uniform(h: torch.Tensor) -> torch.Tensor:
     return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 
-def row_noise(seed: torch.Tensor, shapes) -> list[torch.Tensor]:
+def row_noise(seed: torch.Tensor, shapes, row_offset: int = 0) -> list[torch.Tensor]:
     """Standard normal injection noise ``[B, H, W, 1]`` (float32) for each
     ``(B, H, W, 1)`` of ``shapes`` (one per layer, in order), on ``seed``'s
     device. ``seed``: an int64 tensor of one element in ``[0, 2**63)``.
-    Row ``i`` of layer ``l`` depends on the seed, ``i`` and ``l`` alone."""
+    Row ``i`` of layer ``l`` depends on the seed, ``i`` and ``l`` alone;
+    the rows are ``row_offset + i``, the request rows of a replica that
+    serves rows from ``row_offset`` on."""
     seed = seed.reshape(1).to(torch.int64)
     device = seed.device
     key = _mix((seed & _MASK) ^ _mix((seed >> 32) & _MASK))
     noise = []
     for layer, (b, h, w, _) in enumerate(shapes):
-        rows = torch.arange(b, dtype=torch.int64, device=device)
+        rows = torch.arange(row_offset, row_offset + b, dtype=torch.int64, device=device)
         row_key = _mix(_mix(rows) ^ key)  # [B]
         layer_key = _mix(row_key ^ _mix(layer + 1))[:, None]  # [B, 1]
         counters = _mix(torch.arange(2 * h * w, dtype=torch.int64, device=device))[None, :]

@@ -23,15 +23,26 @@ noise mode, output, bucket) into a CUDA graph and replayed:
 On the CPU, which only a caller who asks for it gets, the same request
 module runs eagerly at the same buckets.
 
+``mesh`` (a sequence of devices, the counterpart of the JAX package's 1-D
+mesh in one process) splits each request's padded rows over replicas: G,
+the heads and the static noise planes are replicated on each device, and
+each device gets its own graph at ``bucket / len(mesh)`` rows per (group
+set, bucket), with its own graph pool (replicas on one device, or on the
+CPU, share its modules). Replica ``k`` serves the padded rows ``[k b / m,
+(k + 1) b / m)``, and its per-row noise hashes those global rows, so a
+meshed request returns the one-device images. Every replica's replay is
+launched before any output is copied to the host (``inference/graphs.py``
+``ReplicatedGraphs``).
+
 ``export_artifacts`` writes each request module as a ``torch.export``
-program with its parameters and noise planes inside, and
-``load_exported_serving`` (``inference/exported.py``) serves them without
-the model code. Multi-card serving (the JAX ``mesh``) goes with DDP
-(ROADMAP Queue 1 item 2).
+program with its parameters and noise planes inside (the one-device
+programs, also under a mesh), and ``load_exported_serving``
+(``inference/exported.py``) serves them without the model code.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 from pathlib import Path
 
@@ -40,7 +51,13 @@ import torch
 from torch import nn
 
 from gan_control_torch.inference.controller import Controller
-from gan_control_torch.inference.graphs import BucketGraph, draw_seed, request_latent, request_rows
+from gan_control_torch.inference.graphs import (
+    BucketGraph,
+    ReplicatedGraphs,
+    draw_seed,
+    request_latent,
+    request_rows,
+)
 from gan_control_torch.inference.row_noise import row_noise
 from gan_control_torch.latent.groups import insert_group_latent
 from gan_control_torch.utils.logging_utils import get_logger
@@ -48,6 +65,14 @@ from gan_control_torch.utils.logging_utils import get_logger
 _log = get_logger(__name__)
 
 OUTPUTS = ("float32", "uint8")
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """``device`` with the current card's index when it is an unindexed
+    CUDA device, so that "cuda" and "cuda:0" name one replica's device."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class ServingRequest(nn.Module):
@@ -59,12 +84,15 @@ class ServingRequest(nn.Module):
     when ``static_noise`` (registered as buffers, so an exported program
     carries them), else the per-row noise of ``seed``. ``w`` is the
     assembled latent before synthesis (the reference contract), not the
-    generator's broadcast w+."""
+    generator's broadcast w+. ``row_offset``: the request row of this
+    module's first row (a mesh replica's), which the per-row noise hashes."""
 
     def __init__(self, model, spec, heads: tuple[tuple[str, str], ...],
                  fc_controls: dict[str, nn.Module], noise: list[torch.Tensor],
-                 input_is_latent: bool, static_noise: bool, output_uint8: bool):
+                 input_is_latent: bool, static_noise: bool, output_uint8: bool,
+                 row_offset: int = 0):
         super().__init__()
+        self.row_offset = row_offset
         self.model = model
         self.spec = spec
         self.heads = heads
@@ -90,7 +118,7 @@ class ServingRequest(nn.Module):
         if self.static_noise:
             noise = [getattr(self, f"noise{i}").expand(b, -1, -1, -1) for i in range(self.n_noise)]
         else:
-            noise = row_noise(seed, self.model.noise_shapes(b))
+            noise = row_noise(seed, self.model.noise_shapes(b), self.row_offset)
         # one latent: the generator draws no style-mixing index (no host sync)
         img, _ = self.model([w], return_latents=True, input_is_latent=True, noise=noise)
         img01 = torch.clamp(img.float() * 0.5 + 0.5, 0.0, 1.0)
@@ -106,21 +134,40 @@ class ServingController(Controller):
     ``buckets``: ascending batch-size ladder; a request of ``n`` images is
     padded to the smallest bucket >= n. Each (group set, bucket) pair is one
     captured graph (and its memory), so keep the ladder short.
-    ``device``/``dtype`` as for ``Controller``. ``mesh`` (multi-card
-    serving) is not ported and raises."""
+    ``device``/``dtype`` as for ``Controller``. ``mesh``: a sequence of
+    devices (see the module docstring); every bucket must divide by its
+    length, and ``device`` defaults to its first."""
 
     def __init__(self, controller_dir, buckets: tuple[int, ...] = (1, 4, 16, 64), mesh=None,
                  device: str | torch.device | None = None, dtype: torch.dtype | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-card serving (mesh) is not ported: it goes with DDP, ROADMAP Queue 1 item 2")
         buckets = tuple(sorted({int(b) for b in buckets}))
         if not buckets or buckets[0] < 1:
             raise ValueError(f"invalid bucket ladder: {buckets!r}")
+        self.mesh = None
+        if mesh is not None:
+            self.mesh = tuple(_indexed(torch.device(d)) for d in mesh)
+            if not self.mesh:
+                raise ValueError("an empty mesh")
+            bad = [b for b in buckets if b % len(self.mesh)]
+            if bad:
+                raise ValueError(f"buckets {bad} not divisible by the {len(self.mesh)}-device mesh")
+            if device is None:
+                device = self.mesh[0]
         super().__init__(controller_dir, device=device, dtype=dtype)
         self.buckets = buckets
-        self._serve_cache: dict[tuple, BucketGraph] = {}
+        self._serve_cache: dict[tuple, BucketGraph | ReplicatedGraphs] = {}
         self._pool = None
+        # per mesh device other than this controller's: (G, heads, noise planes)
+        self._copies: dict[torch.device, tuple] = {}
+        self._pools: list = []
+        if self.mesh is not None:
+            own = _indexed(self.device)
+            for dev in self.mesh:
+                if dev != own and dev not in self._copies:
+                    self._copies[dev] = (copy.deepcopy(self.model).to(dev),
+                                         {h: copy.deepcopy(m).to(dev) for h, m in self.fc_controls.items()},
+                                         [n.to(dev) for n in self.noise])
+            self._pools = [None] * len(self.mesh)
 
     # -- static noise: graph inputs, so changed in place ----------------------
 
@@ -136,11 +183,15 @@ class ServingController(Controller):
 
     def _keep_noise_buffers(self, old) -> None:
         """The captured graphs read the planes' addresses: copy the new
-        planes into the old tensors instead of replacing them."""
+        planes into the old tensors (and into every replica's) instead of
+        replacing them."""
         if old is not None:
             for buf, new in zip(old, self.noise):
                 buf.copy_(new)
             self.noise = old
+        for _, _, planes in getattr(self, "_copies", {}).values():
+            for buf, new in zip(planes, self.noise):
+                buf.copy_(new)
 
     # -- plumbing -------------------------------------------------------------
 
@@ -174,21 +225,41 @@ class ServingController(Controller):
         return routed
 
     def _request(self, heads, input_is_latent: bool, static_noise: bool,
-                 output_uint8: bool) -> ServingRequest:
-        return ServingRequest(self.model, self.spec, heads, self.fc_controls, self.noise,
-                              input_is_latent, static_noise, output_uint8)
+                 output_uint8: bool, device: torch.device | None = None,
+                 row_offset: int = 0) -> ServingRequest:
+        """The request module on ``device`` (this controller's by default,
+        else a mesh replica's copies)."""
+        model, fc_controls, noise = self.model, self.fc_controls, self.noise
+        if device is not None and _indexed(device) in self._copies:
+            model, fc_controls, noise = self._copies[_indexed(device)]
+        return ServingRequest(model, self.spec, heads, fc_controls, noise,
+                              input_is_latent, static_noise, output_uint8, row_offset)
 
-    def _entry(self, key: tuple, control_dims: dict[str, int]) -> BucketGraph:
+    def _entry(self, key: tuple, control_dims: dict[str, int]) -> BucketGraph | ReplicatedGraphs:
         """The request graph of ``key`` = (heads, input_is_latent,
-        static_noise, output, bucket, latent row shape), built at first use."""
+        static_noise, output, bucket, latent row shape), built at first use;
+        under a mesh, one graph per replica."""
         entry = self._serve_cache.get(key)
         if entry is None:
             heads, input_is_latent, static_noise, output, bucket, latent_shape = key
-            if self.device.type == "cuda" and self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            fn = self._request(heads, input_is_latent, static_noise, output == "uint8")
-            entry = BucketGraph(fn, bucket, latent_shape, control_dims, self.device, self._pool)
-            if entry.graph is not None:
+            if self.mesh is None:
+                if self.device.type == "cuda" and self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                fn = self._request(heads, input_is_latent, static_noise, output == "uint8")
+                entry = BucketGraph(fn, bucket, latent_shape, control_dims, self.device, self._pool)
+            else:
+                rows = bucket // len(self.mesh)
+                replicas = []
+                for k, dev in enumerate(self.mesh):
+                    if dev.type == "cuda" and self._pools[k] is None:
+                        with torch.cuda.device(dev):
+                            self._pools[k] = torch.cuda.graph_pool_handle()
+                    fn = self._request(heads, input_is_latent, static_noise, output == "uint8",
+                                       dev, k * rows)
+                    replicas.append(BucketGraph(fn, rows, latent_shape, control_dims, dev,
+                                                self._pools[k]))
+                entry = ReplicatedGraphs(replicas)
+            if entry.capture_seconds:
                 _log.info("serving: captured %s in %.2f s, launches %s", key,
                           entry.capture_seconds, entry.launches)
             self._serve_cache[key] = entry

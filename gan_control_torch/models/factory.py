@@ -34,12 +34,13 @@ def build_generator(
 ) -> Generator:
     """The generator of ``config`` on ``device`` (CUDA unless asked
     otherwise), with parameters drawn as the JAX initialisers draw them from
-    ``seed``. ``mixed_precision: true`` runs synthesis in bf16 (the mapping
-    stays f32); ``dtype`` overrides the synthesis type."""
+    ``seed``. The mapping is ``split_fc``'s, ``marge_fc``'s or the regular
+    one; like the JAX factory, this builds no VAE mapping
+    (``Generator(vae=True)`` does). ``mixed_precision: true`` runs
+    synthesis in bf16 (the mapping stays f32); ``dtype`` overrides the
+    synthesis type."""
     device = resolve_device(device)
     mc = config["model_config"]
-    if mc.get("marge_fc", False):
-        raise NotImplementedError("the marge mapping is not ported yet")
     size = mc["size"]
     model_mode = "896" if size == 896 else "normal"
     if size == 896:
@@ -54,6 +55,7 @@ def build_generator(
         max_channels=mc.get("max_channels", 512),
         out_channels=mc.get("img_channels", 3),
         split_fc=mc.get("split_fc", False),
+        marge_fc=mc.get("marge_fc", False),
         fc_groups=None if spec is None else spec.fc_dims(),
         model_mode=model_mode,
         noise_mode=mc.get("g_noise_mode", "normal"),

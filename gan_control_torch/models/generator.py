@@ -1,14 +1,24 @@
 """StyleGAN2-class Generator with a disentangled (per-attribute) mapping
 network. Port of ``gan_control_tpu/models/generator.py``: channel table,
-regular and split mappings, constant input + conv1 + to_rgb1 + one
-(upsample conv, conv, ToRGB-skip) triple per resolution, noise modes,
-truncation, style mixing by ``inject_index`` and the '896' mode.
+the regular, split, marge and VAE mappings, constant input + conv1 +
+to_rgb1 + one (upsample conv, conv, ToRGB-skip) triple per resolution,
+noise modes, truncation, style mixing by ``inject_index`` and the '896'
+mode.
+
+Mappings (z -> w): ``split_fc``, one MLP per latent group; ``marge_fc``,
+per-group MLPs of ``ceil(n_mlp / 2)`` layers (``style_split``) followed by
+one shared MLP of ``floor(n_mlp / 2)`` layers over the whole w
+(``style_shared``); ``vae``, the VAE embedding (:class:`VAEMapping`), whose
+``mu`` and ``logvar`` :meth:`Generator.map_latent_vae` returns; else one
+shared MLP. The module names are the flax names, so
+``utils/flax_bridge.py`` maps every mapping's parameters both ways.
 
 PyTorch-side differences: injection noise is either an explicit list or
 drawn from an explicit ``torch.Generator``; a missing ``inject_index`` is
-drawn from that generator (midpoint without one). Synthesis runs in
-``dtype`` (bf16 under ``mixed_precision``) while the mapping stays f32.
-The marge and VAE mappings are not ported yet.
+drawn from that generator (midpoint without one); the VAE's ``eps`` is
+passed in or drawn from that generator (the global RNG without one).
+Synthesis runs in ``dtype`` (bf16 under ``mixed_precision``) while the
+mapping stays f32.
 
 ``remat`` (the JAX module's ``remat`` field, off unless set on the
 module, as the controller trainer does): while autograd records, each
@@ -121,6 +131,49 @@ class SplitMapping(nn.Module):
         return torch.cat(outs, dim=-1)
 
 
+class VAEMapping(nn.Module):
+    """The VAE embedding: three shared-in layers, ``to_mu`` and
+    ``to_sigma`` (the log-variance) into ``bottleneck_size``, a
+    reparameterised sample, ``to_sample`` and three shared-out layers back
+    to ``style_dim``, then a sigmoid (JAX ``VAEMapping``)."""
+
+    def __init__(self, bottleneck_size: int = 256, lr_mlp: float = 0.01, style_dim: int = 512):
+        super().__init__()
+
+        def fc(i: int, o: int) -> EqualLinear:
+            return EqualLinear(i, o, lr_mul=lr_mlp, activation="fused_lrelu")
+
+        for i in range(3):
+            self.add_module(f"shared_in_{i}", fc(style_dim, style_dim))
+        self.to_mu = fc(style_dim, bottleneck_size)
+        self.to_sigma = fc(style_dim, bottleneck_size)
+        self.to_sample = fc(bottleneck_size, style_dim)
+        for i in range(3):
+            self.add_module(f"shared_out_{i}", fc(style_dim, style_dim))
+
+    def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        for i in range(3):
+            x = getattr(self, f"shared_in_{i}")(x)
+        return self.to_mu(x), self.to_sigma(x)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        h = self.to_sample(z)
+        for i in range(3):
+            h = getattr(self, f"shared_out_{i}")(h)
+        return torch.sigmoid(h)
+
+    def forward(self, x: torch.Tensor, eps: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        """(w, mu, logvar); ``eps`` [B, bottleneck_size] standard normal,
+        drawn from ``generator`` when not given."""
+        mu, logvar = self.encode(x)
+        std = torch.exp(0.5 * logvar)
+        if eps is None:
+            src = std.device if generator is None else generator.device
+            eps = torch.randn(std.shape, generator=generator, device=src, dtype=std.dtype)
+        return self.decode(mu + eps.to(std.device, std.dtype) * std), mu, logvar
+
+
 class Generator(nn.Module):
     def __init__(
         self,
@@ -132,7 +185,10 @@ class Generator(nn.Module):
         blur_kernel: tuple = (1, 3, 3, 1),
         lr_mlp: float = 0.01,
         out_channels: int = 3,
+        vae: bool = False,
+        bottleneck_size: int = 256,
         split_fc: bool = False,
+        marge_fc: bool = False,
         fc_groups: Sequence[tuple[str, int]] | None = None,
         model_mode: str = "normal",
         noise_mode: str = "normal",
@@ -147,10 +203,19 @@ class Generator(nn.Module):
         self.dtype = dtype
         channels = channel_table(channel_multiplier, max_channels)
 
-        if split_fc:
+        self.vae = vae
+        self.marge_fc = marge_fc and not (vae or split_fc)
+        if vae:
+            self.style = VAEMapping(bottleneck_size, lr_mlp, style_dim)
+        elif split_fc:
             if not fc_groups:
                 raise ValueError("split_fc requires fc_groups")
             self.style = SplitMapping(fc_groups, n_mlp, lr_mlp)
+        elif marge_fc:
+            if not fc_groups:
+                raise ValueError("marge_fc requires fc_groups")
+            self.style_split = SplitMapping(fc_groups, int(math.ceil(n_mlp / 2)), lr_mlp)
+            self.style_shared = RegularMapping(style_dim, int(math.floor(n_mlp / 2)), lr_mlp)
         else:
             self.style = RegularMapping(style_dim, n_mlp, lr_mlp)
 
@@ -199,9 +264,21 @@ class Generator(nn.Module):
     def n_latent(self) -> int:
         return self.log_size * 2 - 2
 
-    def map_latent(self, z: torch.Tensor) -> torch.Tensor:
-        """z -> w."""
+    def map_latent(self, z: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """z -> w (the VAE's sample drawn from ``generator``)."""
+        if self.vae:
+            return self.style(z, generator=generator)[0]
+        if self.marge_fc:
+            return self.style_shared(self.style_split(z))
         return self.style(z)
+
+    def map_latent_vae(self, z: torch.Tensor, eps: torch.Tensor | None = None,
+                       generator: torch.Generator | None = None):
+        """z -> (w, mu, logvar), the VAE objective's KL inputs; ``eps`` as
+        :meth:`VAEMapping.forward` takes it."""
+        if not self.vae:
+            raise ValueError("map_latent_vae requires vae=True")
+        return self.style(z, eps=eps, generator=generator)
 
     def noise_shapes(self, batch: int = 1) -> list[tuple[int, int, int, int]]:
         """Injection-noise shapes per layer, NHWC, incl. the '896' 14*2^k ladder."""
@@ -248,7 +325,7 @@ class Generator(nn.Module):
     ):
         """Returns (image NHWC in ``dtype``, w+ latent or None)."""
         if not input_is_latent:
-            styles = [self.map_latent(s) for s in styles]
+            styles = [self.map_latent(s, generator) for s in styles]
 
         if truncation_latent is not None:
             styles = [truncation_latent + truncation * (s - truncation_latent) for s in styles]

@@ -11,7 +11,12 @@ reads them) maps to a ``state_dict`` by:
     ``(in, out)`` -> ``(out, in)``, conv HWIO -> OIHW.
 
 Every other leaf (biases, ``input/const`` kept NHWC, ``noise/weight``)
-carries over unchanged. :func:`state_dict_to_flax` is the inverse.
+carries over unchanged. :func:`state_dict_to_flax` is the inverse. The
+port's modules carry the flax names, so every mapping maps both ways by
+these rules alone: the split mapping's ``style/<group>/fc<i>``, the marge
+mapping's ``style_split/<group>/fc<i>`` and ``style_shared/fc<i>``, and the
+VAE's ``style/shared_in_<i>``, ``to_mu``, ``to_sigma``, ``to_sample`` and
+``shared_out_<i>`` (flax's names for the layers of a list attribute).
 
 The whole phase-1 train state travels as the JAX package's
 ``GANTrainState`` (:func:`gan_state_to_flax`, :func:`load_gan_state`):

@@ -273,7 +273,9 @@ import gan_control_torch
 mods = [m.name for m in pkgutil.walk_packages(gan_control_torch.__path__, "gan_control_torch.")]
 for name in mods:
     importlib.import_module(name)
-importlib.import_module("gan_control_torch.tools.serving_bench")  # tools/ is not a package
+# tools/ is not a package
+for tool in ("serving_bench", "convergence", "control_fidelity", "numerics_ab"):
+    importlib.import_module(f"gan_control_torch.tools.{tool}")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "gan_control_tpu"))
 assert not bad, bad
@@ -310,6 +312,9 @@ align_project = {f"gan_control_torch.alignment.{m}" for m in (
     "gan_control_torch.alignment", "gan_control_torch.projection", "gan_control_torch.projection.lpips",
     "gan_control_torch.projection.projection", "gan_control_torch.project"}
 assert align_project <= set(mods), sorted(align_project - set(mods))
+slice13 = {"gan_control_torch.utils.spherical_harmonics", "gan_control_torch.examples.inference_example",
+           "gan_control_torch.examples.serving_example"}
+assert slice13 <= set(mods), sorted(slice13 - set(mods))
 assert "matplotlib" not in sys.modules
 assert len(mods) >= 50, mods
 import torch

@@ -187,8 +187,37 @@ def test_bucket_ladder_and_errors(both):
 
 
 def test_mesh_raises(controller_root):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        TServing(controller_root, mesh=object(), device="cpu")
+    """A ladder that the mesh does not divide is refused at init, as the
+    JAX ``ServingController`` refuses it (``test_meshed_serving_parity``)."""
+    with pytest.raises(ValueError, match="not divisible"):
+        TServing(controller_root, buckets=(3, 8), mesh=("cpu", "cpu"))
+    with pytest.raises(ValueError, match="not divisible"):
+        TServing(controller_root, buckets=(4, 8), mesh=("cpu",) * 8)
+
+
+@pytest.mark.parametrize("static_noise", [True, False])
+def test_meshed_serving_matches_one_device(controller_root, both, static_noise):
+    """mesh=("cpu", "cpu"): the request's padded rows split over two
+    replicas (bucket 8 -> 4 rows each; 5 rows -> 4 + 1) give the images of
+    the one-device controller, with static noise and with per-row noise
+    hashed at the global rows (JAX ``test_meshed_serving_parity``'s
+    bound); ``set_noise`` reaches every replica."""
+    _, ts = both
+    meshed = TServing(controller_root, buckets=(4, 8), mesh=("cpu", "cpu"))
+    meshed.set_noise([n.numpy() for n in ts.noise])
+    assert meshed.device == torch.device("cpu")
+    z, o = _z(5, 21), _orientation(5, 4)
+    kw = dict(latent=z, orientation=o, static_noise=static_noise)
+    img_m, z_m, w_m = meshed.generate(generator=torch.Generator().manual_seed(6), **kw)
+    img_s, _, w_s = ts.generate(generator=torch.Generator().manual_seed(6), **kw)
+    assert img_m.shape == (5, SIZE, SIZE, 3)
+    np.testing.assert_array_equal(z_m, z)
+    np.testing.assert_allclose(img_m, img_s, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(w_m, w_s, rtol=0, atol=2e-5)
+    entry = meshed._serve_cache[((("orientation", "orientation"),), False, static_noise, "float32", 8,
+                                 (STYLE,))]
+    assert [r.bucket for r in entry.replicas] == [4, 4]
+    assert [r.fn.row_offset for r in entry.replicas] == [0, 4]
 
 
 def test_warmup_builds_every_set_and_bucket(controller_root):
