@@ -150,7 +150,7 @@ seconds:
     full width (512 px, channel multiplier 2, batch 16), random init:
     (a) 64 seeded 512-px PNGs in AFHQ's ``train/dog`` layout (three
     unreadable files in ``train/cat``, which the loader must not read) and
-    ``python -m gan_control_torch.train_generator --iters 3`` on a copy of
+    ``python -m gan_control_torch.train_generator --iters 2`` on a copy of
     configs/afhq.json: the battery (Hopenet, DogFaceNet, ResNet-18, bf16)
     and adaptive ADA; every iteration's losses and three attribute losses
     finite, ``ada_p`` logged and equal in the checkpoint, the sample grid and
@@ -161,7 +161,7 @@ seconds:
     the run's ``g_ema`` and each mapping tensor the source's where name and
     shape match, else its own init; after, the five-net battery's losses
     finite, ``ada_p`` 0.5 in the checkpoint; (c) one ``GeneratorTrainer``
-    per config with the counters set to 0 around ``train(3)``, each step
+    per config with the counters set to 0 around ``train(2)``, each step
     kind's launches against ``expected_step_counts`` with 3 and 6 groups,
     ms per step kind, peak memory, each net's loss forward and
     image-gradient backward, plain iterations with ADA against the same
@@ -180,7 +180,7 @@ seconds:
     reference layouts under ``build/gan_control_torch/alignment/``; ``python
     -m gan_control_torch.make_attributes_df --align_3d --fan_weights ...
     --detector {sfd,blazeface} --detector_weights ... --depth_weights ...``
-    (batch 40, 160 rows) on phase 10's directory, once per detector: rows/s
+    (batch 40, 80 rows) on phase 10's directory, once per detector: rows/s
     beside phase 10's, each stage's host and device ms per batch (generation,
     detector net, detector decode + NMS, FAN, heatmap decode, depth, the POS
     warp, the alignment as a whole, the predictors), the detector's
@@ -215,7 +215,7 @@ seconds:
     ms between syncs), the plain iterations' ms, the peaks; every (kernel,
     shape, dtype) the two ranks launched, forward and backward against the
     plain version, with its times and bound; (c) ``torchrun
-    --nproc_per_node=2 -m gan_control_torch.make_attributes_df`` (160 rows)
+    --nproc_per_node=2 -m gan_control_torch.make_attributes_df`` (80 rows)
     on phase 10's directory made f32 (``mixed_precision`` off): every row
     of every column against the same sweep replayed in this script at the
     ranks' batch, and every column but DIST_BATCH_SENSITIVE against the
@@ -250,13 +250,41 @@ seconds:
     one device (alternated) and each replica's replay; then every (kernel,
     shape, dtype) that these paths launched, forward and backward against
     the plain version, with its times and bound;
-23. the script's total seconds; one JSON line of per-kernel numbers over
+23. the measuring tools (``gan_control_torch/tools/``): (a) at the end
+    of phase 7, on its trainer's state and six-net battery, ``train_mfu``'s
+    train family (``d_step``, ``g_step``, ``d_reg_step``, ``g_reg_step``
+    at FFHQ-512, batch 16): each step counted once by
+    ``utils/accounting.py`` (FLOPs by op kind and precision, bytes), warmed
+    once and run 8 times back to back (CUDA events), its line, the
+    cadence-amortised summary, every MFU and HBM share in (0, 1.05], the
+    launches over the 10 runs equal to ``expected_step_counts`` times 10;
+    (b) while phase 22's blob-world processes train: seeded random-init
+    checkpoints of the fourteen nets ``convert_weights`` knows, in their
+    reference layouts and file names, and a CPU child process that counts
+    the size-32 steps (configs/ffhq.json at 32 px, 32 channels, ESR-9 and
+    Hopenet of the battery) and runs ``convert_weights --device cpu`` on
+    them; the same
+    size-32 steps counted on the card; ``precision_drift --storage`` (64
+    images, its three legs on the card: the table, every threshold
+    finite); (c) ``convert_weights`` on the card, then its ``--validate``
+    against its own goldens; (d) after phase 22, ``train_mfu``'s
+    generation (batch 128, bf16) and phase-2b executables (``latent_rec``
+    at 128, ``attribute_rec`` through the rematerialised G and Hopenet at
+    32) as (a), their launches against counts derived from the modules;
+    the size-32 counts card against CPU (FLOPs per op kind exactly, bytes
+    apart from ``.contiguous()`` layout copies exactly; both printed); the
+    card's and the CPU's msgpack files byte for byte; the card's probes
+    against the CPU's goldens with the tool's tolerance (ArcFace's and
+    DEX's, GOLDEN_CHAOTIC, printed, not held); then every (kernel, shape,
+    dtype) that (a) and (d) launched, forward and backward against the
+    plain version, with its times and bound;
+24. the script's total seconds; one JSON line of per-kernel numbers over
     ``train(5)``, the phase-2 launches of phases 10-12, the serving
     launches of phase 15, the evaluation launches of phase 16, the AFHQ and
     MetFaces launches of phase 18, the alignment and projection launches
-    of phases 19-20, the two ranks' launches of phase 21b and phase 22's
-    launches (launches, times and bounds summed over the eight), then the
-    card's line and the result line.
+    of phases 19-20, the two ranks' launches of phase 21b, phase 22's
+    launches and phase 23's (launches, times and bounds summed over the
+    nine), then the card's line and the result line.
 
 Times, per launch at each shape and summed over a path's launches:
 "host-rate" is the mean over back-to-back eager calls between two CUDA
@@ -273,6 +301,7 @@ f32 peak, whichever is larger.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import logging
@@ -296,9 +325,6 @@ REPO = Path(__file__).resolve().parent
 CONFIGS = REPO / "gan_control_tpu" / "configs"
 BATCH = 8
 TRAIN_ITERS = 5
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
 PALLAS = "gan_control_tpu/ops/pallas_kernels.py"
 # name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
@@ -436,27 +462,13 @@ def us(ms: float | None) -> str:
 def bound(name: str, shape, dtype, args=()) -> tuple[float, str]:
     """Least time (ms) for one launch: bytes (each input read once, each
     output written once) over peak bandwidth vs float operations over the
-    f32 peak (the kernels compute in f32 whatever the storage)."""
-    numel = int(np.prod(shape))
-    item = torch.tensor([], dtype=dtype).element_size()
-    c = shape[-1]
-    if name == "fused_bias_act":
-        nbytes, ops = 2 * numel * item + c * 4, 4 * numel  # add, compare-select, 2 multiplies
-    elif name == "fused_bias_act_grad":
-        # read g and x, write dx; the bias vectors; add, compare-select, add, multiply
-        nbytes, ops = 3 * numel * item + (3 if args[0] else 2) * c * 4, 4 * numel
-    elif name == "blur2x_up":
-        nbytes, ops = 5 * numel * item, 8 * 4 * numel  # 4x the input out, 4 MACs each
-    elif name == "blur2x_down":
-        nbytes, ops = numel * item * 5 // 4, 2 * 16 * numel // 4  # 16 MACs per output
-    else:  # blur_sep: K MACs per H-pass element ((H_out x W) of them), K per output
-        rt, _, (p0, p1) = args
-        k = len(rt)
-        n, h, w, _ = shape
-        ho, wo = h + p0 + p1 - k + 1, w + p0 + p1 - k + 1
-        nbytes = (numel + n * ho * wo * c) * item
-        ops = 2 * k * n * ho * (w + p0 + p1) * c + 2 * k * n * ho * wo * c
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    f32 peak (the kernels compute in f32 whatever the storage), the work
+    from ``kernels.kernel_work``, the peaks from ``utils/accounting.py``."""
+    from gan_control_torch.ops.kernels import kernel_work
+    from gan_control_torch.utils.accounting import PEAK_BYTES_PER_S, PEAK_FLOPS
+
+    nbytes, ops = kernel_work(name, shape, dtype, args)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FLOPS["f32"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -793,16 +805,6 @@ def expected_step_counts(g, d, n_groups: int) -> dict:
     }
 
 
-def static_args(name: str, a: tuple) -> tuple:
-    """The arguments of a launcher call that are not tensors (for
-    fused_bias_act_grad, whether it has the second-order bias term)."""
-    if name == "fused_bias_act":  # x, bias, slope, scale
-        return (a[2], a[3])
-    if name == "fused_bias_act_grad":  # g, x, bias, gb, slope, scale
-        return (a[3] is not None, a[4], a[5])
-    return tuple(a[1:])  # blur2x_up/down: (coefficients,); blur_sep: (rt, ct, pad)
-
-
 def install_launch_recorder(seen: Counter):
     """Hooks on the launchers: (kernel, shape, dtype, static args) -> launches.
     Returns a function that removes them."""
@@ -814,7 +816,7 @@ def install_launch_recorder(seen: Counter):
         orig = originals[attr] = getattr(kernels, attr)
 
         def hook(*a, _orig=orig, _name=name):
-            seen[(_name, tuple(a[0].shape), a[0].dtype, static_args(_name, a))] += 1
+            seen[(_name, tuple(a[0].shape), a[0].dtype, kernels.launch_static_args(_name, a))] += 1
             return _orig(*a)
 
         setattr(kernels, attr, hook)
@@ -926,10 +928,11 @@ def battery_timing(trainer, g_step_ms: float) -> None:
         f"together {f + b:.2f} ms = {100 * (f + b) / g_step_ms:.1f}% of the {g_step_ms:.2f} ms median g_step")
 
 
-def train_phase(build_root: Path) -> tuple[Counter, dict, dict]:
-    """Phase 7. Returns the recorded launches of ``train(5)`` by
-    (kernel, shape, dtype, static args), the counters read after it, and
-    the plain iterations' ms with the synthetic loader."""
+def train_phase(build_root: Path) -> tuple[Counter, dict, dict, tuple]:
+    """Phase 7, and phase 23a on its trainer. Returns the recorded launches
+    of ``train(5)`` by (kernel, shape, dtype, static args), the counters
+    read after it, the plain iterations' ms with the synthetic loader, and
+    phase 23a's recorded launches and counts."""
     from gan_control_torch.data.datasets import synthetic_data_loader
     from gan_control_torch.inference.inference import Inference
     from gan_control_torch.losses.registry import build_attr_losses, distinct_predictors
@@ -1060,10 +1063,12 @@ def train_phase(build_root: Path) -> tuple[Counter, dict, dict]:
             fail(f"bad g_ema output {tuple(img.shape)}")
         log(f"g_ema through Inference: {tuple(img.shape)} {img.dtype}, checkpoint {inf.ckpt_iter}, "
             f"mean {float(img.mean()):.4f}")
+    # phase 23a: train_mfu's train family on this trainer's state and battery
+    measuring = mfu_train_phase(trainer, per_kind)
     trainer.close()
     del trainer, inf, img
     torch.cuda.empty_cache()
-    return seen, counts, synthetic
+    return seen, counts, synthetic, measuring
 
 
 PLAIN_ITERS = (1, 2, 3, 5)  # d_step + g_step only (no R1, no path length)
@@ -2613,7 +2618,7 @@ def evaluation_phase(build_root: Path) -> tuple[Counter, dict]:
 
 AFHQ_IMAGES = 64
 AFHQ_CATS = 3  # not images: the AFHQ loader reads train/dog only
-NEW_ITERS = 3  # each command-line run and each in-process train()
+NEW_ITERS = 2  # each command-line run and each in-process train() (cut from 3 for phase 23, PERF.md §4)
 FIXED_P = 0.5  # MetFaces' augment.p: the augmentation moves pixels from the first step
 NEW_NETS = {"dog_id_loss": "afhq", "classification_loss": "afhq", "style_loss": "metfaces"}
 NEW_GROUPS = {"afhq": 3, "metfaces": 6}
@@ -3045,7 +3050,7 @@ def afhq_metfaces_phase(build_root: Path, ffhq_run: Path, metfaces_folder: Path)
 # phases 19-20: alignment in the sweep, and projection (this slice)
 # ---------------------------------------------------------------------------
 
-ALIGN_ROWS = 160  # four batches of SWEEP_BATCH per command line
+ALIGN_ROWS = 80  # two batches of SWEEP_BATCH per command line (cut from four for phase 23, PERF.md §4)
 ALIGN_DETECTORS = ("sfd", "blazeface")
 ALIGN_PARITY_BATCH = 2
 PROJ_STEPS = 100  # cut from 200 for phase 21 (PERF.md §4)
@@ -3404,7 +3409,7 @@ def projection_phase(build_root: Path, model_dir: Path, seen: Counter, counts: d
 
 DIST_ITERS = 3  # train_generator over two ranks; iteration 0 runs all four steps
 DIST_PLAIN_ITERS = (1, 2, 3)  # d_step + g_step only
-DIST_SWEEP_ROWS = 160  # four batches of SWEEP_BATCH
+DIST_SWEEP_ROWS = 80  # two batches of SWEEP_BATCH (cut from four for phase 23, PERF.md §4)
 DIST_CTRL_ITERS = 20
 DIST_CTRL_EVAL = 10  # min_evaluate_interval of the two-rank controller run
 # the two-rank sweep against the one-process sweep of the same directory in
@@ -4363,6 +4368,308 @@ def meshed_serving_phase(build_root: Path, seen: Counter, counts: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the measuring tools (phase 23)
+# ---------------------------------------------------------------------------
+
+MFU_MAX = 1.05  # an MFU or an HBM share above this is a counting error
+SMALL = (32, 32)  # size and max_channels of the train steps counted on both devices
+# their battery: two of the six nets (the six cost ~70 s of a shared CPU)
+SMALL_LOSSES = ("expression_loss", "orientation_loss")
+DRIFT_IMAGES = 64  # synthetic images per precision_drift leg (the tool's default 256)
+DRIFT_BATCH = 32
+REF_SEED = 40
+# nets whose random-init forward in f32 moves with the algorithm that runs it
+# (ROADMAP Queue 3 item 13: ArcFace's and DEX's outputs move with the batch
+# size on the card): the card's probe is printed beside the CPU's golden,
+# not held to it
+GOLDEN_CHAOTIC = {
+    "embedding_loss": "ArcFace at random init: its f32 forward moves with the cuDNN algorithm",
+    "age_loss": "DEX at random init: its f32 forward moves with the cuDNN algorithm",
+}
+
+
+def counted_runs(exes: dict) -> tuple[dict, Counter]:
+    """Wraps each executable's ``run`` so that each call adds the launch
+    counters' change over it to its name's Counter; returns (those, runs)."""
+    from gan_control_torch.ops import kernels
+
+    got = {n: Counter() for n in exes}
+    runs: Counter = Counter()
+    for n, e in exes.items():
+        def run(_run=e.run, _n=n):
+            before = kernels.launch_counts()
+            out = _run()
+            after = kernels.launch_counts()
+            got[_n].update({k: after[k] - before[k] for k in after})
+            runs[_n] += 1
+            return out
+        e.run = run
+    return got, runs
+
+
+def check_mfu_rows(rows: list[dict], got: dict, runs: Counter, want: dict, seen_counts: dict) -> None:
+    """Every MFU and HBM share in (0, MFU_MAX]; each executable's launches
+    over its runs (the counting pass, the warm run and the timed runs) equal
+    to its derived launches per run times the runs."""
+    for r in rows:
+        if not (0 < r["mfu"] <= MFU_MAX and 0 < r["hbm"] <= MFU_MAX):
+            fail(f"{r['name']}: MFU {r['mfu']} or HBM share {r['hbm']} outside (0, {MFU_MAX}]")
+        n = r["name"]
+        expected = {k: v * runs[n] for k, v in want[n].items()}
+        if dict(got[n]) != expected:
+            fail(f"{n}: launches over its {runs[n]} runs {dict(got[n])}, expected {expected}")
+        add_counts(seen_counts, got[n])
+        by_prec = ", ".join(f"{p} {v / 1e12:.3f}" for p, v in sorted(r["flops_by_precision"].items()))
+        log(f"train_mfu {n}: {r['flops'] / 1e12:.3f} TFLOP ({by_prec}), "
+            f"{r['bytes'] / 1e9:.2f} GB (layout copies {r['summary']['layout_bytes'] / 1e9:.3f}, host transfers "
+            f"{r['summary']['transfer_bytes'] / 1e6:.3f} MB); floors compute {r['compute_floor_ms']:.2f} ms, HBM "
+            f"{r['hbm_floor_ms']:.2f} ms; measured {r['ms']:.2f} ms; MFU {r['mfu']:.4f}, HBM {r['hbm']:.4f}, "
+            f"{r['limiter']}; {r['imgs_per_s']:.1f} images/s; launches over {runs[n]} runs {dict(got[n])}")
+
+
+def mfu_train_phase(trainer, per_kind: dict) -> tuple[Counter, dict]:
+    """Phase 23a, on phase 7's trainer: ``train_mfu``'s train family
+    (``report(..., measure=True)``) on its state and battery, with the
+    launches recorded. Returns (recorded launches, counts)."""
+    from gan_control_torch.tools import train_mfu as tm
+
+    seen: Counter = Counter()
+    counts = {n: 0 for n in KERNELS}
+    with Phase("measuring tools: train_mfu train"):
+        exes = tm.train_exes(trainer.state, trainer.step_cfg, trainer.spec, trainer.attr_losses,
+                             trainer.predictors, trainer.augment_fn)
+        got, runs = counted_runs(exes)
+        remove = install_launch_recorder(seen)
+        try:
+            rows = tm.report(exes, True, "train", "cuda")
+        finally:
+            remove()
+        check_mfu_rows(rows, got, runs, per_kind, counts)
+    return seen, counts
+
+
+def write_reference_root(root: Path) -> list[str]:
+    """Seeded random-init nets in their reference checkpoints' layouts, under
+    the file names convert_weights looks for: ESR-9's ten files, the hair
+    net's ``{'weight': ...}`` wrapper, DEX's caffe ``fc8-101``, Hopenet's
+    ``fc_finetune``, a whole torchvision VGG16 ``features`` (13 convs, for
+    the style loss and LPIPS's backbone) and richzhang's LPIPS heads, and the
+    rest as state_dicts in their own names. (The tests' writer,
+    ``tests/test_torch_predictors.py``, lives in a file that imports JAX.)
+    Returns the entry names written."""
+    from gan_control_torch.alignment import blazeface, fan, sfd
+    from gan_control_torch.evaluation import inception
+    from gan_control_torch.losses.predictors import predictor_module
+    from gan_control_torch.losses.predictors.common import init_predictor_
+    from gan_control_torch.projection import lpips
+
+    def net_sd(loss: str, seed: int) -> dict:
+        return init_predictor_(predictor_module(loss).make_model({"center_crop": None}), seed).state_dict()
+
+    def save(obj, name: str) -> None:
+        (root / name).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(obj, root / name)
+
+    root.mkdir(parents=True, exist_ok=True)
+    files = {"embedding_loss": "model_ir_se50.pth",
+             "recon_3d_loss": "face3dmm_recon/models/pytorch_converted_model.pt",
+             "dog_id_loss": "dogfacenet/models/pytorch_converted_model.pt",
+             "classification_loss": "resnet18-f37072fd.pth"}
+    for i, (loss, name) in enumerate(files.items()):
+        save(net_sd(loss, REF_SEED + i), name)
+    sd = net_sd("orientation_loss", REF_SEED + 4)
+    sd.update({"fc_finetune.weight": torch.zeros(3, 2051), "fc_finetune.bias": torch.zeros(3)})
+    save(sd, "hopenet_robust_alpha1.pkl")
+    sd = net_sd("age_loss", REF_SEED + 5)
+    save({k.replace("fc8_101", "fc8-101"): v for k, v in sd.items()}, "dex_imdb_wiki.pt")
+    save({"weight": net_sd("hair_loss", REF_SEED + 6)}, "pspnet_resnet101_sgd_lr_0.002_epoch_100_test_iou_0.918.pth")
+    sd = net_sd("expression_loss", REF_SEED + 7)
+    save({k[5:]: v for k, v in sd.items() if k.startswith("base.")}, "esr_9/Net-Base-Shared_Representations.pt")
+    for i in range(9):
+        pre = f"convolutional_branches.{i}."
+        branch = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+        branch.update({"fc_dimensional.weight": torch.zeros(2, 8), "fc_dimensional.bias": torch.zeros(2)})
+        save(branch, f"esr_9/Net-Branch_{i + 1}.pt")
+    lp = lpips.make_lpips(seed=REF_SEED + 8).state_dict()
+    save({f"features.{k[len('vgg.conv'):]}": v for k, v in lp.items() if k.startswith("vgg.")},
+         "vgg16-397923af.pth")
+    save({f"lin{i}.model.1.weight": lp[f"lins.{i}.weight"].reshape(1, -1, 1, 1) for i in range(5)},
+         "lpips/vgg.pth")
+    save(inception.init_params(REF_SEED + 9).state_dict(), "pt_inception-2015-12-05-6726825d.pth")
+    save(init_predictor_(fan.FANNet(4), REF_SEED + 10).state_dict(), "3DFAN4-7835d9f11d.pth.tar")
+    save(init_predictor_(sfd.S3FD(), REF_SEED + 11).state_dict(), "s3fd-619a316812.pth")
+    save(init_predictor_(blazeface.BlazeFaceNet(), REF_SEED + 12).state_dict(), "blazeface.pth")
+    return [*files, "orientation_loss", "age_loss", "hair_loss", "expression_loss", "style_loss",
+            "lpips", "fid_inception", "fan", "sfd", "blazeface"]
+
+
+@contextlib.contextmanager
+def phase7_tf32():
+    """TF32 switches at phase 7's setting (cuDNN on, cuBLAS off, the
+    defaults), restored on exit."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def small_step_counts(device: str) -> dict:
+    """The size-32 train steps (configs/ffhq.json cut to SMALL, ESR-9 and
+    Hopenet of its battery, the bf16 plan) counted once each on ``device``,
+    the TF32 switches at phase 7's setting: {step: accountant summary}."""
+    from gan_control_torch.tools import train_mfu as tm
+
+    tr = tm.build_trainer(tm.model_config(CONFIGS / "ffhq.json", *SMALL, losses=SMALL_LOSSES), device)
+    try:
+        exes = tm.train_exes(tr.state, tr.step_cfg, tr.spec, tr.attr_losses, tr.predictors, tr.augment_fn)
+        with phase7_tf32():
+            return {n: tm.count(e, device).summary() for n, e in exes.items()}
+    finally:
+        tr.close()
+
+
+def measuring_cpu_child(root: str, out: str) -> None:
+    """Runs in a fresh interpreter on the CPU (four threads), beside phase
+    23's card work: the size-32 steps' counts and ``convert_weights`` of the
+    reference root with ``--device cpu`` into ``converted_cpu`` beside
+    ``out`` (the CPU's goldens). Writes the counts and its seconds to the
+    JSON file ``out``."""
+    from gan_control_torch.tools import convert_weights
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    counts = small_step_counts("cpu")
+    t1 = time.perf_counter()
+    rc = convert_weights.main(["--root", root, "--out", str(Path(out).parent / "converted_cpu"), "--device", "cpu"])
+    Path(out).write_text(json.dumps({"counts": counts, "rc": rc, "count_seconds": t1 - t0,
+                                     "convert_seconds": time.perf_counter() - t1}))
+
+
+def measuring_start(build_root: Path) -> dict:
+    """Phase 23b-c, none of it timed (it runs while phase 22's blob-world
+    processes train): the reference root and the CPU child
+    (:func:`measuring_cpu_child`), the size-32 steps counted on the card,
+    ``precision_drift`` with ``--storage`` on the card, and
+    ``convert_weights`` on the card, validated against its own goldens.
+    Returns what :func:`measuring_finish` compares."""
+    import shutil
+
+    from gan_control_torch.tools import convert_weights, precision_drift
+
+    root = build_root / "measuring"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    with Phase("measuring tools: reference checkpoints"):
+        names = write_reference_root(root / "pretrained")
+        out = root / "cpu_child.json"
+        with open(root / "cpu_child.log", "w") as f:
+            child = subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.measuring_cpu_child("
+                 f"{str(root / 'pretrained')!r}, {str(out)!r})"], stdout=f, stderr=subprocess.STDOUT, cwd=REPO)
+    with Phase("measuring tools: size-32 counts on the card"):
+        card = small_step_counts("cuda")
+    with Phase("measuring tools: precision_drift"):
+        drift = precision_drift.main(["--num_images", str(DRIFT_IMAGES), "--batch_size", str(DRIFT_BATCH),
+                                      "--storage", "--out", str(root / "drift"), "--device", "cuda"])
+        for loss, tables in drift.items():
+            vals = [v for t in tables.values() for layer in t.values() for v in layer["suggested"].values()]
+            if len(tables) != 3 or not all(math.isfinite(v) for v in vals):
+                fail(f"precision_drift {loss}: legs {sorted(tables)}, values {vals}")
+            log(f"precision_drift {loss}: legs {sorted(tables)} on cuda, {len(vals)} suggested thresholds, "
+                "all finite")
+    with Phase("measuring tools: convert_weights on the card"):
+        specs = convert_weights.make_specs()
+        converted, missing = convert_weights.convert(specs, str(root / "pretrained"),
+                                                     str(root / "converted_card"), "cuda")
+        if sorted(converted) != sorted(names) or missing:
+            fail(f"convert_weights converted {converted}, missing {missing}; wrote {names}")
+        own = convert_weights.validate(specs, str(root / "converted_card"), "cuda")
+        bad = [n for n, (ok, _, _) in own.items() if not ok]
+        if len(own) != len(names) or bad:
+            fail(f"convert_weights --validate on the card against its own goldens: {len(own)} nets, "
+                 f"mismatches {bad}")
+        log(f"convert_weights on the card: {len(converted)} nets converted and validated")
+    return {"root": root, "names": names, "child": child, "out": out, "card": card}
+
+
+def measuring_finish(build_root: Path, started: dict, seen: Counter, counts: dict) -> None:
+    """Phase 23d: ``train_mfu``'s generation and phase-2b executables
+    (measured, launches recorded), then the CPU child's results against the
+    card's: the size-32 counts, the msgpack files, the probes against the
+    CPU's goldens."""
+    from gan_control_torch.tools import convert_weights
+    from gan_control_torch.tools import train_mfu as tm
+
+    root, names, child, out, card = (started[k] for k in ("root", "names", "child", "out", "card"))
+    config = json.loads((CONFIGS / "ffhq.json").read_text())
+    with Phase("measuring tools: train_mfu gen and phase2b"), phase7_tf32():
+        exes = {**tm.gen_exe(config, "cuda"), **tm.phase2b_exes(tm.write_generator_dir(root, config), "cuda")}
+        n_map, n_conv, n_up = g_counts(exes["generation"].model)
+        want = {"generation": row(n_map + n_conv, 0, n_up, 0)}
+        rec, attr = exes["phase2b_latent_rec_step"].model, exes["phase2b_attr_rec_step"].model
+        want["phase2b_latent_rec_step"] = row(rec.controller.n_mlp, rec.controller.n_mlp, 0, 0)
+        g = attr.generator
+        _, a_conv, a_up = g_counts(g)
+        n_head = attr.controller.n_mlp
+        # the head forward and backward; each StyledConv forward, again in the
+        # backward for the rematerialised ones, and its gradient; each ToRGB
+        # skip up, and down in the backward (as phase 12)
+        want["phase2b_attr_rec_step"] = row(n_head + a_conv + len(g.convs), n_head + a_conv, a_up, a_up)
+        got, runs = counted_runs(exes)
+        remove = install_launch_recorder(seen)
+        try:
+            rows = tm.report(exes, True, "gen and phase2b", "cuda")
+        finally:
+            remove()
+        check_mfu_rows(rows, got, runs, want, counts)
+        del exes, rec, attr, g
+        torch.cuda.empty_cache()
+    with Phase("measuring tools: the CPU child"):
+        child.wait(timeout=900)
+    log_text = (root / "cpu_child.log").read_text().splitlines()
+    if child.returncode != 0 or not out.exists():
+        fail(f"the CPU child exited {child.returncode}; last lines:\n" + "\n".join(log_text[-30:]))
+    res = json.loads(out.read_text())
+    log(f"measuring tools CPU child: size-32 counts {res['count_seconds']:.1f} s, convert_weights "
+        f"{res['convert_seconds']:.1f} s (rc {res['rc']})")
+    with Phase("measuring tools: card against CPU"):
+        for step, c in card.items():
+            h = res["counts"][step]
+            same = c["flops"] == h["flops"] and c["bytes"] - c["layout_bytes"] == h["bytes"] - h["layout_bytes"]
+            log(f"size-32 {step} count, card against CPU: FLOPs {sum(c['flops'].values())} / "
+                f"{sum(h['flops'].values())} over {len(c['flops'])} op kinds, bytes less layout copies "
+                f"{c['bytes'] - c['layout_bytes']} / {h['bytes'] - h['layout_bytes']}, layout copies "
+                f"{c['layout_bytes']} / {h['layout_bytes']}, host transfers {c['transfer_bytes']} / "
+                f"{h['transfer_bytes']}: {'equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"size-32 {step}: the card's count {c} differs from the CPU's {h}")
+        for name in names:
+            a, b = (root / "converted_card" / f"{name}.msgpack").read_bytes(), \
+                (root / "converted_cpu" / f"{name}.msgpack").read_bytes()
+            if a != b:
+                fail(f"convert_weights {name}: the card's msgpack differs from the CPU's")
+        held = convert_weights.validate(convert_weights.make_specs(), str(root / "converted_cpu"), "cuda")
+        for name, (ok, got, want) in sorted(held.items()):
+            dist = max(abs(got["mean"] - want["mean"]), abs(got["std"] - want["std"]),
+                       *(abs(x - y) for x, y in zip(got["first8"], want["first8"])))
+            if name in GOLDEN_CHAOTIC:
+                log(f"convert_weights golden {name}: card against the CPU's golden, largest distance "
+                    f"{dist:.3g} ({'within' if ok else 'beyond'} the tool's tolerance; not held: "
+                    f"{GOLDEN_CHAOTIC[name]})")
+                continue
+            if not ok:
+                fail(f"convert_weights golden {name}: the card's probe {got} against the CPU's {want}")
+            log(f"convert_weights golden {name}: card against the CPU's golden, largest distance {dist:.3g}: "
+                "within the tool's tolerance (relative 1e-3, absolute 1e-4)")
+        if sorted(held) != sorted(names):
+            fail(f"validated {sorted(held)}, expected {sorted(names)}")
+        log(f"convert_weights: the card's and the CPU's {len(names)} msgpack files are byte for byte equal")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4407,7 +4714,7 @@ def main() -> None:
         log(f"inference totals {n}: launches {infer_counts[n]} " + totals_text(infer_totals[n]))
 
     # 7-9. training
-    seen, counts, synthetic = train_phase(build_root)
+    seen, counts, synthetic, (seen9, counts9) = train_phase(build_root)
     ffhq_run = image_folder_phase(build_root, synthetic)
     with Phase("train kernels"):
         totals = train_kernel_phase(seen)
@@ -4494,6 +4801,8 @@ def main() -> None:
     blob_procs = start_blob_children(build_root)
     marge_phase(build_root, seen8, counts8)
     meshed_serving_phase(build_root, seen8, counts8)
+    # 23b-c meanwhile: the measuring tools' untimed work
+    measuring = measuring_start(build_root)
     blob_phase(build_root, blob_procs, seen8, counts8)
     with Phase("phase 22 kernels"):
         totals8 = train_kernel_phase(seen8, "phase 22", both_dtypes=False)
@@ -4501,13 +4810,22 @@ def main() -> None:
         log(f"phase 22 totals {n}: launches {counts8[n]} " + totals_text(totals8[n]))
     merge_totals(totals, totals8)
 
+    # 23d. the measuring tools (23a ran on phase 7's trainer, 23b-c beside
+    # phase 22's blob-world processes)
+    measuring_finish(build_root, measuring, seen9, counts9)
+    with Phase("phase 23 kernels"):
+        totals9 = train_kernel_phase(seen9, "phase 23", both_dtypes=False)
+    for n in KERNELS:
+        log(f"phase 23 totals {n}: launches {counts9[n]} " + totals_text(totals9[n]))
+    merge_totals(totals, totals9)
+
     entries = []
     for n, (route, src, replaces) in KERNELS.items():
         tot = totals[n]
         entries.append({
             "name": n, "route": route, "source": src, "replaces": replaces,
             "launches": counts[n] + counts2[n] + counts3[n] + counts4[n] + counts5[n] + counts6[n]
-            + counts7[n] + counts8[n],
+            + counts7[n] + counts8[n] + counts9[n],
             "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],

@@ -34,10 +34,12 @@ from gan_control_torch.alignment.timing import StageTimer
 from gan_control_torch.losses.predictors.common import (
     Conv2d,
     conv_from_flax,
+    conv_to_flax,
     flax_params,
     max_pool,
     read_torch_checkpoint,
     t,
+    to_np,
 )
 
 INPUT_SIZE = 128
@@ -313,3 +315,17 @@ def state_dict_from_flax(tree) -> dict:
     for head in ("classifier_8", "classifier_16", "regressor_8", "regressor_16"):
         sd.update(conv_from_flax(p[head], head))
     return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    """The port's ``state_dict`` -> the JAX ``BlazeFaceNet`` parameter tree."""
+    p = {"conv0": conv_to_flax(sd, "backbone1.0")}
+    for name, prefix, count, base in (("b1", "backbone1", len(BACKBONE1), 2),
+                                      ("b2", "backbone2", len(BACKBONE2), 0)):
+        for i in range(count):
+            tp = f"{prefix}.{base + i}.convs"
+            p[f"{name}_{i}"] = {"dw_weight": to_np(sd[f"{tp}.0.weight"].permute(2, 3, 1, 0)),
+                                "dw_bias": to_np(sd[f"{tp}.0.bias"]), "pw": conv_to_flax(sd, f"{tp}.1")}
+    for head in ("classifier_8", "classifier_16", "regressor_8", "regressor_16"):
+        p[head] = conv_to_flax(sd, head)
+    return {"params": p}

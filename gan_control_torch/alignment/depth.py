@@ -30,8 +30,9 @@ from gan_control_torch.losses.predictors.common import (
     flax_params,
     read_torch_checkpoint,
     t,
+    to_np,
 )
-from gan_control_torch.losses.predictors.resnet import ResNetTrunk, trunk_from_flax
+from gan_control_torch.losses.predictors.resnet import ResNetTrunk, trunk_from_flax, trunk_to_flax
 
 LAYERS = (3, 8, 36, 3)
 NUM_LANDMARKS = 68
@@ -146,3 +147,9 @@ def state_dict_from_flax(tree) -> dict:
     sd["fc.weight"] = t(np.asarray(p["fc_w"]).T)
     sd["fc.bias"] = t(p["fc_b"])
     return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    """The port's ``state_dict`` -> the JAX ``ResNetDepth`` parameter tree."""
+    return {"params": {"trunk": trunk_to_flax(sd, layers_of(sd), bottleneck=True),
+                       "fc_w": to_np(sd["fc.weight"].T), "fc_b": to_np(sd["fc.bias"])}}

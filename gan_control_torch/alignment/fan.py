@@ -37,7 +37,9 @@ from gan_control_torch.losses.predictors.common import (
     FrozenBatchNorm,
     avg_pool,
     bn_from_flax,
+    bn_to_flax,
     conv_from_flax,
+    conv_to_flax,
     flax_params,
     read_torch_checkpoint,
     resize_bilinear,
@@ -305,3 +307,33 @@ def state_dict_from_flax(tree) -> dict:
                 sd.update(conv_from_flax(p[name], name))
         i += 1
     return sd
+
+
+def _convblock_to_flax(sd: dict, prefix: str) -> dict:
+    p = {}
+    for c in range(1, 4):
+        p[f"conv{c}"] = conv_to_flax(sd, f"{prefix}.conv{c}")
+        p[f"bn{c}"] = bn_to_flax(sd, f"{prefix}.bn{c}")
+    if f"{prefix}.downsample.0.weight" in sd:
+        p["down_bn"] = bn_to_flax(sd, f"{prefix}.downsample.0")
+        p["down_conv"] = conv_to_flax(sd, f"{prefix}.downsample.2")
+    return p
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    """The port's ``state_dict`` -> the JAX ``FANNet`` parameter tree
+    (:func:`state_dict_from_flax` inverted)."""
+    p = {"conv1": conv_to_flax(sd, "conv1"), "bn1": bn_to_flax(sd, "bn1")}
+    for name in ("conv2", "conv3", "conv4"):
+        p[name] = _convblock_to_flax(sd, name)
+    i = 0
+    while any(k.startswith(f"m{i}.") for k in sd):
+        blocks = dict.fromkeys(k.split(".")[1] for k in sd if k.startswith(f"m{i}."))
+        p[f"m{i}"] = {b: _convblock_to_flax(sd, f"m{i}.{b}") for b in blocks}
+        p[f"top_m_{i}"] = _convblock_to_flax(sd, f"top_m_{i}")
+        p[f"bn_end{i}"] = bn_to_flax(sd, f"bn_end{i}")
+        for name in (f"conv_last{i}", f"l{i}", f"bl{i}", f"al{i}"):
+            if f"{name}.weight" in sd:
+                p[name] = conv_to_flax(sd, name)
+        i += 1
+    return {"params": p}

@@ -39,10 +39,12 @@ from gan_control_torch.alignment.timing import StageTimer
 from gan_control_torch.losses.predictors.common import (
     Conv2d,
     conv_from_flax,
+    conv_to_flax,
     flax_params,
     max_pool,
     read_torch_checkpoint,
     t,
+    to_np,
 )
 
 BGR_MEANS = np.array([104.0, 117.0, 123.0], np.float32)
@@ -274,3 +276,12 @@ def state_dict_from_flax(tree) -> dict:
         else:
             sd.update(conv_from_flax(node, name))
     return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    """The port's ``state_dict`` -> the JAX ``S3FD`` parameter tree."""
+    p = {}
+    for name in dict.fromkeys(k.rsplit(".", 1)[0] for k in sd):
+        w = sd[f"{name}.weight"]
+        p[name] = {"weight": to_np(w)} if w.ndim == 1 else conv_to_flax(sd, name)  # the L2Norm scales
+    return {"params": p}

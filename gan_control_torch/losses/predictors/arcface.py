@@ -31,8 +31,10 @@ from gan_control_torch.losses.predictors.common import (
     Linear,
     PReLU,
     bn_from_flax,
+    bn_to_flax,
     center_crop,
     conv_from_flax,
+    conv_to_flax,
     flax_params,
     l2_normalize,
     read_torch_checkpoint,
@@ -40,6 +42,7 @@ from gan_control_torch.losses.predictors.common import (
     t,
     to_nchw,
     to_nhwc,
+    to_np,
 )
 
 STAGES_50 = ((64, 3), (128, 4), (256, 14), (512, 3))  # (depth, units)
@@ -175,3 +178,37 @@ def state_dict_from_flax(tree: dict) -> dict:
                 sd.update(bn_from_flax(blk["short_bn"], f"{pre}.shortcut_layer.1"))
             b += 1
     return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    """This module's state_dict -> the JAX ArcFace tree
+    (:func:`state_dict_from_flax` inverted)."""
+    w_fc = to_np(sd["output_layer.3.weight"]).reshape(512, 512, 7, 7).transpose(2, 3, 1, 0)
+    p = {
+        "input_conv": conv_to_flax(sd, "input_layer.0"),
+        "input_bn": bn_to_flax(sd, "input_layer.1"),
+        "input_prelu": {"alpha": to_np(sd["input_layer.2.weight"])},
+        "out_bn": bn_to_flax(sd, "output_layer.0"),
+        "out_bn1d": bn_to_flax(sd, "output_layer.4"),
+        "out_fc": {"weight": np.ascontiguousarray(w_fc.reshape(-1, 512)),
+                   "bias": to_np(sd["output_layer.3.bias"])},
+    }
+    b = 0
+    for _, units in STAGES_50:
+        for _ in range(units):
+            pre = f"body.{b}"
+            blk = {
+                "bn0": bn_to_flax(sd, f"{pre}.res_layer.0"),
+                "conv1": conv_to_flax(sd, f"{pre}.res_layer.1"),
+                "prelu": {"alpha": to_np(sd[f"{pre}.res_layer.2.weight"])},
+                "conv2": conv_to_flax(sd, f"{pre}.res_layer.3"),
+                "bn2": bn_to_flax(sd, f"{pre}.res_layer.4"),
+                "se": {"fc1": conv_to_flax(sd, f"{pre}.res_layer.5.fc1"),
+                       "fc2": conv_to_flax(sd, f"{pre}.res_layer.5.fc2")},
+            }
+            if f"{pre}.shortcut_layer.0.weight" in sd:
+                blk["short_conv"] = conv_to_flax(sd, f"{pre}.shortcut_layer.0")
+                blk["short_bn"] = bn_to_flax(sd, f"{pre}.shortcut_layer.1")
+            p[f"block{b}"] = blk
+            b += 1
+    return {"params": p}

@@ -284,6 +284,36 @@ def bn_from_flax(node: dict, prefix: str) -> dict:
             f"{prefix}.running_mean": t(node["mean"]), f"{prefix}.running_var": t(node["var"])}
 
 
+# reference state_dict entries -> flax trees (the JAX converters' layout)
+
+
+def to_np(t) -> np.ndarray:
+    """A state_dict tensor as a C-order float32 numpy array."""
+    return np.ascontiguousarray(t.detach().cpu().float().numpy())
+
+
+def conv_to_flax(sd: dict, prefix: str) -> dict:
+    """``prefix.weight`` OIHW (and ``prefix.bias``) -> {"weight": HWIO[, "bias"]}."""
+    node = {"weight": np.ascontiguousarray(to_np(sd[f"{prefix}.weight"]).transpose(2, 3, 1, 0))}
+    if f"{prefix}.bias" in sd:
+        node["bias"] = to_np(sd[f"{prefix}.bias"])
+    return node
+
+
+def dense_to_flax(sd: dict, prefix: str) -> dict:
+    """``prefix.weight`` [out, in] (and ``prefix.bias``) -> {"weight": [in, out][, "bias"]}."""
+    node = {"weight": np.ascontiguousarray(to_np(sd[f"{prefix}.weight"]).T)}
+    if f"{prefix}.bias" in sd:
+        node["bias"] = to_np(sd[f"{prefix}.bias"])
+    return node
+
+
+def bn_to_flax(sd: dict, prefix: str) -> dict:
+    """BatchNorm names -> flax FrozenBatchNorm (scale, bias, mean, var)."""
+    return {"scale": to_np(sd[f"{prefix}.weight"]), "bias": to_np(sd[f"{prefix}.bias"]),
+            "mean": to_np(sd[f"{prefix}.running_mean"]), "var": to_np(sd[f"{prefix}.running_var"])}
+
+
 def flax_params(tree: dict) -> dict:
     """The ``params`` level of a flax variables tree (or the tree itself)."""
     return tree["params"] if set(tree) == {"params"} else tree

@@ -25,7 +25,9 @@ from gan_control_torch.losses.predictors.common import (
     Linear,
     center_crop,
     conv_from_flax,
+    conv_to_flax,
     dense_from_flax,
+    dense_to_flax,
     flax_params,
     max_pool,
     normalize_channels,
@@ -33,6 +35,7 @@ from gan_control_torch.losses.predictors.common import (
     resize_bilinear,
     t,
     to_nchw,
+    to_np,
 )
 
 CAFFE_MEAN_RGB = np.array([0.48501961, 0.45795686, 0.40760392], np.float32)
@@ -118,3 +121,13 @@ def state_dict_from_flax(tree: dict) -> dict:
     sd.update(dense_from_flax(p["fc7"], "fc7"))
     sd.update(dense_from_flax(p["fc8_101"], "fc8_101"))
     return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    p = {name: conv_to_flax(sd, name) for name in _conv_names()}
+    # fc6's input: (C, H, W) -> the NHWC (H, W, C) flatten of the JAX package
+    w6 = to_np(sd["fc6.weight"]).reshape(4096, 512, 7, 7).transpose(2, 3, 1, 0)
+    p["fc6"] = {"weight": np.ascontiguousarray(w6.reshape(-1, 4096)), "bias": to_np(sd["fc6.bias"])}
+    p["fc7"] = dense_to_flax(sd, "fc7")
+    p["fc8_101"] = dense_to_flax(sd, "fc8_101")
+    return {"params": p}

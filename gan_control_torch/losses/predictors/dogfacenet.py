@@ -29,8 +29,10 @@ from gan_control_torch.losses.predictors.common import (
     FrozenBatchNorm,
     Linear,
     bn_from_flax,
+    bn_to_flax,
     center_crop,
     conv_from_flax,
+    conv_to_flax,
     flax_params,
     l2_normalize,
     max_pool,
@@ -38,6 +40,7 @@ from gan_control_torch.losses.predictors.common import (
     resize_bicubic,
     t,
     to_nchw,
+    to_np,
 )
 
 INPUT_SIZE = 224
@@ -124,3 +127,15 @@ def state_dict_from_flax(tree: dict) -> dict:
             sd.update(conv_from_flax(blk[f"conv{k}"], f"{pre}.conv{k}"))
             sd.update(bn_from_flax(blk[f"bn{k}"], f"{pre}.bn{k}"))
     return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    p = {"conv0": conv_to_flax(sd, "conv0"), "bn0": bn_to_flax(sd, "bn0"),
+         "fc_weight": to_np(sd["fc.weight"].T)}
+    for i in range(len(BLOCKS)):
+        pre = f"res_block{i + 1}"
+        p[f"block{i + 1}"] = {
+            **{f"conv{k}": conv_to_flax(sd, f"{pre}.conv{k}") for k in range(3)},
+            **{f"bn{k}": bn_to_flax(sd, f"{pre}.bn{k}") for k in range(3)},
+        }
+    return {"params": p}

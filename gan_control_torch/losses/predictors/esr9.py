@@ -31,8 +31,10 @@ from gan_control_torch.losses.predictors.common import (
     FrozenBatchNorm,
     Linear,
     bn_from_flax,
+    bn_to_flax,
     center_crop,
     conv_from_flax,
+    conv_to_flax,
     flax_params,
     max_pool,
     read_torch_checkpoint,
@@ -40,6 +42,7 @@ from gan_control_torch.losses.predictors.common import (
     t,
     to_nchw,
     to_nhwc,
+    to_np,
 )
 
 # the ensemble's eight classes, in its output order
@@ -166,3 +169,20 @@ def state_dict_from_flax(tree: dict) -> dict:
     for i in range(NUM_BRANCHES):
         sd.update(block(p[f"branch{i}"], f"convolutional_branches.{i}", True))
     return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    def block(prefix, has_fc):
+        node = {}
+        for c in range(1, 5):
+            node[f"conv{c}"] = conv_to_flax(sd, f"{prefix}.conv{c}")
+            node[f"bn{c}"] = bn_to_flax(sd, f"{prefix}.bn{c}")
+        if has_fc:
+            node["fc_weight"] = np.ascontiguousarray(to_np(sd[f"{prefix}.fc.weight"]).T)
+            node["fc_bias"] = to_np(sd[f"{prefix}.fc.bias"])
+        return node
+
+    p = {"base": block("base", False)}
+    for i in range(NUM_BRANCHES):
+        p[f"branch{i}"] = block(f"convolutional_branches.{i}", True)
+    return {"params": p}

@@ -28,13 +28,16 @@ from gan_control_torch.losses.predictors.common import (
     Conv2d,
     FrozenBatchNorm,
     bn_from_flax,
+    bn_to_flax,
     center_crop,
     conv_from_flax,
+    conv_to_flax,
     flax_params,
     read_torch_checkpoint,
     resize_bicubic,
     t,
     to_nchw,
+    to_np,
 )
 
 BN_EPS = 1.001e-5
@@ -180,3 +183,21 @@ def state_dict_from_flax(tree: dict) -> dict:
         sd.update(conv_from_flax(p[f"head_{name}"], f"{name}.tf_fc"))
         sd[f"{name}.add_bais"] = t(p[f"head_{name}_add"])
     return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    p = {"conv1": conv_to_flax(sd, "conv1"), "bn1": bn_to_flax(sd, "bn1")}
+    for b, (_, _, n_mid, has_end) in enumerate(BLOCKS):
+        for u in range(1 + n_mid + int(has_end)):
+            pre, node = f"block{b + 1}.unit_{u + 1}", {}
+            for c in range(1, 4):
+                node[f"conv{c}"] = conv_to_flax(sd, f"{pre}.conv{c}")
+                node[f"bn{c}"] = bn_to_flax(sd, f"{pre}.bn{c}")
+            if f"{pre}.conv_shortcut.weight" in sd:
+                node["conv_shortcut"] = conv_to_flax(sd, f"{pre}.conv_shortcut")
+                node["bn_shortcut"] = bn_to_flax(sd, f"{pre}.bn_shortcut")
+            p[f"block{b + 1}_unit{u + 1}"] = node
+    for name, _ in HEADS:
+        p[f"head_{name}"] = conv_to_flax(sd, f"{name}.tf_fc")
+        p[f"head_{name}_add"] = to_np(sd[f"{name}.add_bais"])
+    return {"params": p}

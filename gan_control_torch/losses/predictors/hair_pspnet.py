@@ -29,7 +29,9 @@ from gan_control_torch.losses.predictors.common import (
     FrozenBatchNorm,
     adaptive_avg_pool,
     bn_from_flax,
+    bn_to_flax,
     conv_from_flax,
+    conv_to_flax,
     flax_params,
     normalize_channels,
     read_torch_checkpoint,
@@ -37,7 +39,12 @@ from gan_control_torch.losses.predictors.common import (
     to_nchw,
     to_nhwc,
 )
-from gan_control_torch.losses.predictors.resnet import Bottleneck, make_layer, trunk_from_flax
+from gan_control_torch.losses.predictors.resnet import (
+    Bottleneck,
+    make_layer,
+    trunk_from_flax,
+    trunk_to_flax,
+)
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -158,3 +165,20 @@ def state_dict_from_flax(tree: dict) -> dict:
         sd.update(bn_from_flax(p[f"up{j}_bn"], f"up_{j + 1}.conv.1"))
     sd.update(conv_from_flax(p["final"], "final.0"))
     return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    heads = {str(i): head for head, i in _FEATURE_INDEX.items()}
+    trunk = {}
+    for k, v in sd.items():
+        if k.startswith("base_network.features."):
+            idx, _, tail = k[len("base_network.features."):].partition(".")
+            trunk[f"{heads[idx]}.{tail}"] = v
+    p = {"trunk": trunk_to_flax(trunk, TRUNK_LAYERS, bottleneck=True)}
+    for i in range(len(PSP_SIZES)):
+        p[f"psp{i}"] = conv_to_flax(sd, f"psp.pooling_layers.{i}.1")
+    for j in range(len(UP_CHANNELS)):
+        p[f"up{j}_conv"] = conv_to_flax(sd, f"up_{j + 1}.conv.0")
+        p[f"up{j}_bn"] = bn_to_flax(sd, f"up_{j + 1}.conv.1")
+    p["final"] = conv_to_flax(sd, "final.0")
+    return {"params": p}

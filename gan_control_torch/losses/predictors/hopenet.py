@@ -23,6 +23,7 @@ from gan_control_torch.losses.contrastive import pairwise_l1
 from gan_control_torch.losses.predictors.common import (
     Linear,
     dense_from_flax,
+    dense_to_flax,
     flax_params,
     normalize_channels,
     read_torch_checkpoint,
@@ -30,7 +31,7 @@ from gan_control_torch.losses.predictors.common import (
     to_nchw,
     to_nhwc,
 )
-from gan_control_torch.losses.predictors.resnet import ResNetTrunk, trunk_from_flax
+from gan_control_torch.losses.predictors.resnet import ResNetTrunk, trunk_from_flax, trunk_to_flax
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -98,3 +99,10 @@ def state_dict_from_flax(tree: dict) -> dict:
     for name in HEADS:
         sd.update(dense_from_flax(p[name], name))
     return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    p = {"trunk": trunk_to_flax(sd, LAYERS, bottleneck=True)}
+    for name in HEADS:
+        p[name] = dense_to_flax(sd, name)
+    return {"params": p}

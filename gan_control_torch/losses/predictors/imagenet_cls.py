@@ -27,12 +27,13 @@ from gan_control_torch.losses.predictors.common import (
     Linear,
     center_crop,
     dense_from_flax,
+    dense_to_flax,
     flax_params,
     read_torch_checkpoint,
     resize_bilinear,
     to_nchw,
 )
-from gan_control_torch.losses.predictors.resnet import ResNetTrunk, trunk_from_flax
+from gan_control_torch.losses.predictors.resnet import ResNetTrunk, trunk_from_flax, trunk_to_flax
 
 INPUT_SIZE = 224
 LAYERS = (2, 2, 2, 2)
@@ -82,3 +83,8 @@ def read_reference_state_dict(path) -> dict:
 def state_dict_from_flax(tree: dict) -> dict:
     p = flax_params(tree)
     return {**trunk_from_flax(p["trunk"], LAYERS, bottleneck=False), **dense_from_flax(p["fc"], "fc")}
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    return {"params": {"trunk": trunk_to_flax(sd, LAYERS, bottleneck=False),
+                       "fc": dense_to_flax(sd, "fc")}}

@@ -14,7 +14,9 @@ from gan_control_torch.losses.predictors.common import (
     Conv2d,
     FrozenBatchNorm,
     bn_from_flax,
+    bn_to_flax,
     conv_from_flax,
+    conv_to_flax,
     max_pool,
 )
 
@@ -117,3 +119,21 @@ def trunk_from_flax(p: dict, layers, bottleneck: bool = True, prefix: str = "") 
                 sd.update(conv_from_flax(blk["down_conv"], f"{pre}.downsample.0"))
                 sd.update(bn_from_flax(blk["down_bn"], f"{pre}.downsample.1"))
     return sd
+
+
+def trunk_to_flax(sd: dict, layers, bottleneck: bool = True, prefix: str = "") -> dict:
+    """torchvision keys -> a flax ResNetTrunk tree (:func:`trunk_from_flax`
+    inverted)."""
+    n_convs = 3 if bottleneck else 2
+    p = {"conv1": conv_to_flax(sd, f"{prefix}conv1"), "bn1": bn_to_flax(sd, f"{prefix}bn1")}
+    for stage, n in enumerate(layers):
+        for b in range(n):
+            pre, blk = f"{prefix}layer{stage + 1}.{b}", {}
+            for c in range(1, n_convs + 1):
+                blk[f"conv{c}"] = conv_to_flax(sd, f"{pre}.conv{c}")
+                blk[f"bn{c}"] = bn_to_flax(sd, f"{pre}.bn{c}")
+            if f"{pre}.downsample.0.weight" in sd:
+                blk["down_conv"] = conv_to_flax(sd, f"{pre}.downsample.0")
+                blk["down_bn"] = bn_to_flax(sd, f"{pre}.downsample.1")
+            p[f"layer{stage + 1}_{b}"] = blk
+    return p

@@ -26,6 +26,7 @@ from gan_control_torch.losses.predictors.common import (
     Conv2d,
     center_crop,
     conv_from_flax,
+    conv_to_flax,
     flax_params,
     max_pool,
     normalize_channels,
@@ -102,12 +103,14 @@ def controller_criterion(pred: torch.Tensor, target: torch.Tensor) -> torch.Tens
 
 
 def read_reference_state_dict(path) -> dict:
-    """A torchvision ``vgg16`` state_dict (the classifier dropped) or its
-    ``features`` alone, as ``features.<i>.*``."""
+    """A torchvision ``vgg16`` state_dict (the whole model or its
+    ``features`` alone) -> the convs of SLICES as ``features.<i>.*``; the
+    later convs and the classifier dropped, as the JAX converter drops
+    them."""
     sd = read_torch_checkpoint(path)
-    if any(k.startswith("features.") for k in sd):
-        return {k: v for k, v in sd.items() if k.startswith("features.")}
-    return {f"features.{k}": v for k, v in sd.items()}
+    prefix = "features." if any(k.startswith("features.") for k in sd) else ""
+    return {f"features.{idx}.{p}": sd[f"{prefix}{idx}.{p}"]
+            for convs in SLICES for idx, _ in convs for p in ("weight", "bias")}
 
 
 def state_dict_from_flax(tree: dict) -> dict:
@@ -117,3 +120,8 @@ def state_dict_from_flax(tree: dict) -> dict:
         for idx, _ in convs:
             sd.update(conv_from_flax(p[f"conv{idx}"], f"features.{idx}"))
     return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    return {"params": {f"conv{idx}": conv_to_flax(sd, f"features.{idx}")
+                       for convs in SLICES for idx, _ in convs}}

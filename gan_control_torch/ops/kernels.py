@@ -31,7 +31,12 @@ when their input needs no gradient or autograd is off). Each wrapper checks the
 layout it takes (the channel is the innermost physical axis: NHWC or
 ``[rows, C]``, contiguous) and raises on any other, on every device.
 ``<wrapper>.launches`` counts kernel launches and nothing else;
-the counting happens in the ``_cuda_*`` launchers. The Functions do not
+the counting happens in the ``_cuda_*`` launchers, which the wrappers and
+Functions reach through :func:`_launch`. Under a work accountant
+(``utils/accounting.py``) each launch reports :func:`kernel_work`, and a
+CPU tensor takes the Functions with the plain versions in the launchers'
+place, so a step counts the same work on the CPU and on the card. The
+Functions do not
 materialize missing gradients: a backward that receives none (a branch of
 a double backward that no parameter depends on) launches nothing.
 
@@ -63,6 +68,8 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gan_control_torch.utils import accounting
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gan_control_torch"
@@ -102,9 +109,11 @@ def _check_nhwc(name: str, x: torch.Tensor) -> None:
 
 def _plain_path(x: torch.Tensor) -> bool:
     """A wrapper runs its plain version for a tensor on the CPU, and only
-    there. (Tests substitute this to drive the autograd Functions on the
-    CPU with the plain versions in the launchers' place.)"""
-    return x.device.type == "cpu"
+    there; while a work accountant is active (``utils/accounting.py``) a CPU
+    tensor takes the autograd Functions with the plain versions in the
+    launchers' place, the structure the card runs. (Tests substitute this to
+    drive the Functions on the CPU likewise.)"""
+    return x.device.type == "cpu" and accounting.active() is None
 
 
 def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -311,7 +320,7 @@ class _FusedBiasAct(torch.autograd.Function):
         ctx.save_for_backward(x, bias)
         ctx.args = (negative_slope, scale)
         ctx.set_materialize_grads(False)
-        return _cuda_fused_bias_act(x, bias, negative_slope, scale)
+        return _launch("fused_bias_act", x, bias, negative_slope, scale)
 
     @staticmethod
     def backward(ctx, dy):
@@ -335,7 +344,7 @@ class _FusedBiasActGrad(torch.autograd.Function):
         ctx.args = (negative_slope, scale)
         ctx.has_gb = gb is not None
         ctx.set_materialize_grads(False)
-        dx = _cuda_fused_bias_act_grad(g, x, bias, gb, negative_slope, scale)
+        dx = _launch("fused_bias_act_grad", g, x, bias, gb, negative_slope, scale)
         return dx, _row_sum(dx)
 
     @staticmethod
@@ -538,7 +547,7 @@ class _Blur2xUp(torch.autograd.Function):
     def forward(ctx, x, k):
         ctx.k = k
         ctx.set_materialize_grads(False)
-        return _cuda_blur2x_up(x, k)
+        return _launch("blur2x_up", x, k)
 
     @staticmethod
     def backward(ctx, dy):
@@ -552,7 +561,7 @@ class _Blur2xDown(torch.autograd.Function):
     def forward(ctx, x, k):
         ctx.k = k
         ctx.set_materialize_grads(False)
-        return _cuda_blur2x_down(x, k)
+        return _launch("blur2x_down", x, k)
 
     @staticmethod
     def backward(ctx, dy):
@@ -574,7 +583,7 @@ def blur2x_up(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
     if _plain_path(x):
         return _up_plain(x, k)
     if not (x.requires_grad and torch.is_grad_enabled()):
-        return _cuda_blur2x_up(x, k)  # autograd records nothing: the launcher alone
+        return _launch("blur2x_up", x, k)  # autograd records nothing: the launcher alone
     return _Blur2xUp.apply(x, k)
 
 
@@ -596,7 +605,7 @@ def blur2x_down(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
     if _plain_path(x):
         return _down_plain(x, k)
     if not (x.requires_grad and torch.is_grad_enabled()):
-        return _cuda_blur2x_down(x, k)  # autograd records nothing: the launcher alone
+        return _launch("blur2x_down", x, k)  # autograd records nothing: the launcher alone
     return _Blur2xDown.apply(x, k)
 
 
@@ -694,7 +703,7 @@ class _BlurSep(torch.autograd.Function):
     def forward(ctx, x, row_taps, col_taps, pad):
         ctx.args = (row_taps, col_taps, pad)
         ctx.set_materialize_grads(False)
-        return _cuda_blur_sep(x, row_taps, col_taps, pad)
+        return _launch("blur_sep", x, row_taps, col_taps, pad)
 
     @staticmethod
     def backward(ctx, dy):
@@ -721,11 +730,76 @@ def blur_sep(x: torch.Tensor, row_taps, col_taps, pad) -> torch.Tensor:
     if _plain_path(x):
         return blur_sep_plain(x, *args)
     if not (x.requires_grad and torch.is_grad_enabled()):
-        return _cuda_blur_sep(x, *args)  # autograd records nothing: the launcher alone
+        return _launch("blur_sep", x, *args)  # autograd records nothing: the launcher alone
     return _BlurSep.apply(x, *args)
 
 
 blur_sep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# launches and their work
+# ---------------------------------------------------------------------------
+
+# kernel -> (its launcher's name in this module, its plain version), one
+# signature per pair
+_LAUNCHERS = {
+    "fused_bias_act": ("_cuda_fused_bias_act", fused_bias_act_plain),
+    "fused_bias_act_grad": ("_cuda_fused_bias_act_grad", fused_bias_act_grad_plain),
+    "blur2x_up": ("_cuda_blur2x_up", _up_plain),
+    "blur2x_down": ("_cuda_blur2x_down", _down_plain),
+    "blur_sep": ("_cuda_blur_sep", blur_sep_plain),
+}
+
+
+def _launch(name: str, *a):
+    """The launcher of kernel ``name`` on its arguments (looked up here at
+    each call, so a substituted launcher takes its place). Under a work
+    accountant the launch reports :func:`kernel_work`, and a CPU tensor runs
+    the plain version in the launcher's place."""
+    launcher, plain = _LAUNCHERS[name]
+    acc = accounting.active()
+    if acc is None:
+        return globals()[launcher](*a)
+    x = a[0]
+    with acc.kernel(name, *kernel_work(name, x.shape, x.dtype, launch_static_args(name, a))):
+        return plain(*a) if x.device.type == "cpu" else globals()[launcher](*a)
+
+
+def launch_static_args(name: str, a: tuple) -> tuple:
+    """The arguments of a launcher call that are not tensors (for
+    fused_bias_act_grad, whether it has the second-order bias term)."""
+    if name == "fused_bias_act":  # x, bias, slope, scale
+        return (a[2], a[3])
+    if name == "fused_bias_act_grad":  # g, x, bias, gb, slope, scale
+        return (a[3] is not None, a[4], a[5])
+    return tuple(a[1:])  # blur2x_up/down: (coefficients,); blur_sep: (rt, ct, pad)
+
+
+def kernel_work(name: str, shape, dtype: torch.dtype, args=()) -> tuple[int, int]:
+    """``(bytes, float operations)`` of one launch on an input of ``shape``
+    and ``dtype``, with the launcher's static arguments ``args``
+    (:func:`launch_static_args`): each input read once and each output
+    written once; the operations in f32, whatever the storage."""
+    numel = math.prod(shape)
+    item = torch.tensor([], dtype=dtype).element_size()
+    c = shape[-1]
+    if name == "fused_bias_act":
+        return 2 * numel * item + c * 4, 4 * numel  # add, compare-select, 2 multiplies
+    if name == "fused_bias_act_grad":
+        # read g and x, write dx; the bias vectors; add, compare-select, add, multiply
+        return 3 * numel * item + (3 if args[0] else 2) * c * 4, 4 * numel
+    if name == "blur2x_up":
+        return 5 * numel * item, 8 * 4 * numel  # 4x the input out, 4 MACs each
+    if name == "blur2x_down":
+        return numel * item * 5 // 4, 2 * 16 * numel // 4  # 16 MACs per output
+    # blur_sep: K MACs per H-pass element ((H_out x W) of them), K per output
+    rt, _, (p0, p1) = args
+    k = len(rt)
+    n, h, w, _ = shape
+    ho, wo = h + p0 + p1 - k + 1, w + p0 + p1 - k + 1
+    nbytes = (numel + n * ho * wo * c) * item
+    return nbytes, 2 * k * n * ho * (w + p0 + p1) * c + 2 * k * n * ho * wo * c
 
 
 # ---------------------------------------------------------------------------

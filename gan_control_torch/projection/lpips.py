@@ -24,11 +24,13 @@ from torch import nn
 from gan_control_torch.losses.predictors.common import (
     Conv2d,
     conv_from_flax,
+    conv_to_flax,
     flax_params,
     init_predictor_,
     max_pool,
     read_torch_checkpoint,
     t,
+    to_np,
 )
 
 SHIFT = np.array([-0.030, -0.088, -0.188], np.float32)
@@ -136,6 +138,15 @@ def state_dict_from_flax(tree) -> dict:
     for li in range(len(CHANNELS)):
         sd[f"lins.{li}.weight"] = t(np.asarray(p[f"lin{li}"]).reshape(-1))
     return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    """The port's ``state_dict`` -> the JAX ``LPIPS`` parameter tree."""
+    p = {"vgg": {f"conv{idx}": conv_to_flax(sd, f"vgg.conv{idx}") for convs in SLICES for idx, _ in convs}}
+    for li in range(len(CHANNELS)):
+        p[f"lin{li}"] = to_np(sd[f"lins.{li}.weight"])
+    return {"params": p}
+
 
 
 def lpips_distance(net: LPIPS, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:

@@ -164,6 +164,25 @@ def inception_state_dict_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.T
     return out
 
 
+def inception_state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """:func:`inception_state_dict_from_flax` inverted: each ``<path>.conv``
+    and ``<path>.bn`` pair to the ``BasicConv`` node ``{"conv", "bn"}`` at
+    ``path``, under ``params``."""
+    from gan_control_torch.losses.predictors.common import bn_to_flax, conv_to_flax
+
+    params: dict[str, Any] = {}
+    for key in state_dict:
+        if not key.endswith(".conv.weight"):
+            continue
+        path = key[: -len(".conv.weight")]
+        node = params
+        for part in path.split("."):
+            node = node.setdefault(part, {})
+        node["conv"] = conv_to_flax(state_dict, f"{path}.conv")
+        node["bn"] = bn_to_flax(state_dict, f"{path}.bn")
+    return {"params": params}
+
+
 def save_flax_checkpoint(ckpt_dir: str | Path, entry: str, module: nn.Module,
                          step: int = 0) -> Path:
     """Write ``{entry: flax tree of module}`` as ``ckpt_dir/%06d.ckpt``, the

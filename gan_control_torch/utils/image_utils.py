@@ -1,5 +1,6 @@
 """PIL image helpers (port of ``gan_control_tpu/utils/image_utils.py``):
-text overlays, the head-pose axes and the k smallest entries of an array.
+text overlays, the head-pose axes, animated GIFs of image grids and the k
+smallest entries of an array.
 Host-side numpy and PIL, so the port draws the same pixels as the JAX
 package."""
 
@@ -52,6 +53,20 @@ def draw_axis_on_image(img_u8: np.ndarray, yaw: float, pitch: float, roll: float
     d.line([(cx, cy), (x2, y2)], fill=(0, 255, 0), width=2)
     d.line([(cx, cy), (x3, y3)], fill=(255, 0, 0), width=2)
     return np.asarray(im)
+
+
+def save_gif_from_grids(frames: Sequence[np.ndarray], path, nrow: int = 4,
+                        duration_ms: int = 500) -> None:
+    """An animated GIF (looping) at ``path``, one frame per entry of
+    ``frames`` ([N, H, W, C] in [0, 1], laid out by
+    ``evaluation.generation.to_uint8_grid`` with ``nrow`` images a row),
+    ``duration_ms`` per frame."""
+    from PIL import Image
+
+    from gan_control_torch.evaluation.generation import to_uint8_grid
+
+    imgs = [Image.fromarray(to_uint8_grid(np.asarray(f), nrow=nrow)) for f in frames]
+    imgs[0].save(str(path), save_all=True, append_images=imgs[1:], duration=duration_ms, loop=0)
 
 
 def get_kmin(values: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:

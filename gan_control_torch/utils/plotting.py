@@ -1,9 +1,10 @@
-"""Plots of the evaluations, drawn with PIL (port of ``plot_hist`` and
-``plot_bar`` of ``gan_control_tpu/utils/plotting.py``, which draws them
-with matplotlib: the port's machines need not have matplotlib, and PIL is
-already the port's image writer).
+"""Plots of the evaluations, drawn with PIL (port of ``plot_hist``,
+``plot_graph``, ``plot_bar`` and ``plot_error_bar`` of
+``gan_control_tpu/utils/plotting.py``, which draws them with matplotlib:
+the port's machines need not have matplotlib, and PIL is already the port's
+image writer).
 
-Both draw on an 800 x 500 canvas, write it to ``save_path`` (format from
+Each draws on an 800 x 500 canvas, write it to ``save_path`` (format from
 the suffix) and return that path. The statistics are numpy's: a plot and
 the numbers behind it agree.
 """
@@ -112,6 +113,83 @@ def plot_bar(
         d.text((x0, _y(h, top) - 14), f"{h:g}", fill=(0, 0, 0))
         if k < len(labels):
             d.text((x0, BOX[3] + 6 + 12 * (k % 2)), str(labels[k]), fill=(0, 0, 0))
+    if save_path:
+        im.save(save_path)
+    return save_path
+
+
+def _y_range(lo: float, hi: float) -> tuple[float, float]:
+    """A vertical range with 5 % margins (a flat series gets +-0.5)."""
+    if hi <= lo:
+        return lo - 0.5, hi + 0.5
+    m = 0.05 * (hi - lo)
+    return lo - m, hi + m
+
+
+def _yv(v: float, lo: float, hi: float) -> float:
+    return BOX[3] - (v - lo) / (hi - lo) * (BOX[3] - BOX[1])
+
+
+def plot_graph(
+    values: Sequence[float],
+    steps: Sequence[int] | None = None,
+    title: str = "",
+    ylabel: str = "",
+    save_path: str | Path | None = None,
+):
+    """A metric's curve over ``steps`` (default 0..n-1), annotated with its
+    minimum ("min {v:.3f}") and its last value ("last {v:.3f}"), as the
+    reference's FID curve."""
+    values = np.asarray(values, np.float64)
+    steps = np.arange(len(values)) if steps is None else np.asarray(steps, np.float64)
+    x0, x1 = float(steps.min()), float(steps.max())
+    lo, hi = _y_range(float(values.min()), float(values.max()))
+    im, d = _canvas(title)
+    pts = [(_x(float(s), x0, x1), _yv(float(v), lo, hi)) for s, v in zip(steps, values)]
+    if len(pts) > 1:
+        d.line(pts, fill=COLORS[0], width=2)
+    i_min = int(np.argmin(values))
+    for i, text, dy in ((i_min, f"min {values[i_min]:.3f}", -16), (len(values) - 1, f"last {values[-1]:.3f}", 4)):
+        x, y = pts[i]
+        d.ellipse((x - 3, y - 3, x + 3, y + 3), fill=COLORS[0])
+        d.text((x + 5 if x + 90 < WIDTH else x - 90, y + dy), text, fill=(0, 0, 0))
+    d.text((BOX[0], BOX[3] + 6), f"{x0:g}", fill=(0, 0, 0))
+    d.text((BOX[2] - 40, BOX[3] + 6), f"{x1:g}", fill=(0, 0, 0))
+    d.text((4, BOX[1]), f"{hi:.4g}", fill=(0, 0, 0))
+    d.text((4, BOX[3] - 12), f"{lo:.4g}", fill=(0, 0, 0))
+    d.text((4, (BOX[1] + BOX[3]) / 2), ylabel, fill=(0, 0, 0))
+    if save_path:
+        im.save(save_path)
+    return save_path
+
+
+def plot_error_bar(
+    means: Sequence[float],
+    stds: Sequence[float],
+    labels: Sequence[str],
+    title: str = "",
+    ylabel: str = "",
+    save_path: str | Path | None = None,
+):
+    """Mean +/- std per entry: a dot at the mean and a capped vertical bar
+    over [mean - std, mean + std], labelled below with ``labels``."""
+    means, stds = np.asarray(means, np.float64), np.abs(np.asarray(stds, np.float64))
+    lo, hi = _y_range(float((means - stds).min()), float((means + stds).max()))
+    im, d = _canvas(title)
+    n = max(len(means), 1)
+    slot = (BOX[2] - BOX[0]) / n
+    for k, (m, s) in enumerate(zip(means, stds)):
+        x = BOX[0] + (k + 0.5) * slot
+        y_top, y_bot, y = _yv(m + s, lo, hi), _yv(m - s, lo, hi), _yv(m, lo, hi)
+        d.line((x, y_top, x, y_bot), fill=COLORS[0], width=1)
+        d.line((x - 4, y_top, x + 4, y_top), fill=COLORS[0], width=1)
+        d.line((x - 4, y_bot, x + 4, y_bot), fill=COLORS[0], width=1)
+        d.ellipse((x - 3, y - 3, x + 3, y + 3), fill=COLORS[0])
+        if k < len(labels):
+            d.text((x - slot * 0.35, BOX[3] + 6 + 12 * (k % 2)), str(labels[k]), fill=(0, 0, 0))
+    d.text((4, BOX[1]), f"{hi:.4g}", fill=(0, 0, 0))
+    d.text((4, BOX[3] - 12), f"{lo:.4g}", fill=(0, 0, 0))
+    d.text((4, (BOX[1] + BOX[3]) / 2), ylabel, fill=(0, 0, 0))
     if save_path:
         im.save(save_path)
     return save_path

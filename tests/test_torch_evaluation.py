@@ -301,6 +301,64 @@ def test_pil_plots(tmp_path):
     assert abs(heights[2] / heights[0] - 7 / 3) < 0.05
 
 
+def test_gif_from_grids_frames_match_jax(tmp_path):
+    from PIL import Image, ImageSequence
+
+    rng = np.random.default_rng(13)
+    frames = [rng.uniform(0, 1, (5, 8, 8, 3)).astype(np.float32) for _ in range(3)]
+    t_img.save_gif_from_grids(frames, tmp_path / "t.gif", nrow=2, duration_ms=200)
+    j_img.save_gif_from_grids(frames, tmp_path / "j.gif", nrow=2, duration_ms=200)
+    got, want = (Image.open(tmp_path / f"{n}.gif") for n in "tj")
+    assert got.n_frames == want.n_frames == 3 and got.info["duration"] == want.info["duration"] == 200
+    for g, w in zip(ImageSequence.Iterator(got), ImageSequence.Iterator(want)):
+        np.testing.assert_array_equal(np.asarray(g.convert("RGB")), np.asarray(w.convert("RGB")))
+
+
+def test_plot_graph_annotates_min_and_last_as_jax(tmp_path, monkeypatch):
+    import matplotlib.axes
+    from PIL import Image, ImageDraw
+
+    from gan_control_tpu.utils import plotting as j_plot
+
+    texts = {"jax": [], "port": []}
+    j_annotate, t_text = matplotlib.axes.Axes.annotate, ImageDraw.ImageDraw.text
+
+    def annotate(ax, text, *a, **k):
+        texts["jax"].append(text)
+        return j_annotate(ax, text, *a, **k)
+
+    def text(draw, xy, value, *a, **k):
+        texts["port"].append(value)
+        return t_text(draw, xy, value, *a, **k)
+
+    monkeypatch.setattr(matplotlib.axes.Axes, "annotate", annotate)
+    monkeypatch.setattr(ImageDraw.ImageDraw, "text", text)
+    values, steps = [31.5, 22.25, 19.125, 24.0], [0, 100, 200, 300]
+    j_plot.plot_graph(values, steps, title="fid", ylabel="FID", save_path=tmp_path / "j.png")
+    path = plotting.plot_graph(values, steps, title="fid", ylabel="FID", save_path=tmp_path / "t.png")
+    assert texts["jax"] == ["min 19.125", "last 24.000"]
+    assert [t for t in texts["port"] if t.startswith(("min ", "last "))] == texts["jax"]
+    assert Image.open(path).size == (plotting.WIDTH, plotting.HEIGHT)
+
+
+def test_plot_error_bar(tmp_path):
+    from PIL import Image
+
+    means, stds = [1.0, 3.0, 2.0], [0.5, 1.0, 0.25]
+    path = plotting.plot_error_bar(means, stds, ["a", "b", "c"], title="e", ylabel="v",
+                                   save_path=tmp_path / "e.png")
+    img = np.asarray(Image.open(path))
+    assert img.shape == (plotting.HEIGHT, plotting.WIDTH, 3)
+    slot = (plotting.BOX[2] - plotting.BOX[0]) / 3
+    # each bar's vertical extent, in the plot's colour, in the ratio of the stds
+    spans = []
+    for k in range(3):
+        col = img[plotting.BOX[1]:plotting.BOX[3], int(plotting.BOX[0] + (k + 0.5) * slot)]
+        rows = np.flatnonzero((col == plotting.COLORS[0]).all(-1))
+        spans.append(rows.max() - rows.min())
+    assert abs(spans[1] / spans[0] - 2.0) < 0.1 and abs(spans[2] / spans[0] - 0.5) < 0.1
+
+
 # ---------------------------------------------------------------------------
 # the Tracker
 # ---------------------------------------------------------------------------
