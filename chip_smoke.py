@@ -11,7 +11,7 @@ seconds:
 
  1. the card's name and power limit, as nvidia-smi reports them;
  2. build the CUDA kernel libraries (one nvcc per source, all at once) and
-    compile the Triton kernels;
+    compile the Triton kernels (``dequant_int8`` among them);
  3. inference: write an FFHQ-512 controller directory (configs/ffhq.json,
     the orientation and age heads) at random init in the JAX package's
     layout, with the port's own msgpack writer, and load it through
@@ -278,13 +278,44 @@ seconds:
     DEX's, GOLDEN_CHAOTIC, printed, not held); then every (kernel, shape,
     dtype) that (a) and (d) launched, forward and backward against the
     plain version, with its times and bound;
-24. the script's total seconds; one JSON line of per-kernel numbers over
+24. int8 storage of the battery (``training_config.predictor_dtype:
+    "int8"``) and the last developer probes ((a), (b), (d) and (e) beside
+    phase 22's blob-world processes, (c) after phase 23): (a) a ``GeneratorTrainer``
+    on configs/ffhq.json with int8 storage (FFHQ-512, batch 16, the
+    six-net battery at random init: 1685 tensors, 280.5 M elements, in one
+    int8 store), and the ``dequant_int8`` kernel on that whole store
+    against its plain version, bitwise in bf16 and f32, with its device
+    time (graph replay), its host-rate time, the plain per-tensor loop's
+    and its bound; (b) ``train(2)`` with the counters set to 0 just before
+    and read just after: each step kind's launches against
+    ``expected_step_counts`` with exactly one dequantisation per
+    ``g_step``, finite losses, the store unchanged, no float copy of a
+    quantised tensor resident, each step's bf16 buffer freed with its
+    step and the first bitwise the plain version's; then every (kernel,
+    shape, dtype) of the G and D that it launched, against the plain
+    version, with its times and bound; (c) ``battery_share``'s four legs
+    (f32, bf16 and int8 storage, adversarial only) at FFHQ-512, batch 16:
+    ms (synced median of 5, legs in turn), FLOPs and bytes, resident
+    battery bytes and peaks; (d) on phase 9's size-32 model and calibrated
+    battery, the CPU's side in a process of its own from the end of phase
+    9 on, the card's beside phase 22: int8 stores quantised on the card
+    and on the CPU bitwise
+    equal and the dequantisation bitwise, the bf16 resize backward on the
+    card within a rounding of the f32 sum, each net's features from the
+    store bitwise a bf16 battery's of the dequantised weights, each net's
+    image gradient card against CPU (f32 and bf16, against a float64
+    witness), and the size-32 int8 ``g_step``'s G gradients card against
+    CPU, each against the CPU's f32 step (``int8_card_vs_cpu`` gives the
+    bounds); (e) ``profile_bench`` (its ``g_full`` step on (b)'s trainer,
+    generation at batch 128) and ``loader_bench`` on 32 seeded JPEGs, as
+    smoke tests of the tools;
+25. the script's total seconds; one JSON line of per-kernel numbers over
     ``train(5)``, the phase-2 launches of phases 10-12, the serving
     launches of phase 15, the evaluation launches of phase 16, the AFHQ and
     MetFaces launches of phase 18, the alignment and projection launches
     of phases 19-20, the two ranks' launches of phase 21b, phase 22's
-    launches and phase 23's (launches, times and bounds summed over the
-    nine), then the card's line and the result line.
+    launches, phase 23's and phase 24's (launches, times and bounds summed
+    over the ten), then the card's line and the result line.
 
 Times, per launch at each shape and summed over a path's launches:
 "host-rate" is the mean over back-to-back eager calls between two CUDA
@@ -303,6 +334,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import json
 import logging
 import math
@@ -334,7 +366,13 @@ KERNELS = {
     "blur2x_up": ("cuda", "gan_control_torch/csrc/blur2x_up.cu", f"{PALLAS}:215"),
     "blur2x_down": ("cuda", "gan_control_torch/csrc/blur2x_down.cu", f"{PALLAS}:149"),
     "blur_sep": ("cuda", "gan_control_torch/csrc/blur_sep.cu", f"{PALLAS}:318"),
+    # no Pallas kernel: the JAX package dequantises the int8 battery with an
+    # XLA convert per tensor (dequantize_predictor_params)
+    "dequant_int8": ("triton", "gan_control_torch/csrc/dequant_int8.py",
+                     "gan_control_tpu/losses/registry.py:148"),
 }
+# the kernels of the G and the D; dequant_int8 runs only under int8 storage (phase 24)
+GD_KERNELS = tuple(n for n in KERNELS if n != "dequant_int8")
 INFER_KERNELS = ("fused_bias_act", "blur2x_up")
 # the one PyTorch call that computes a kernel's function (timed, never used by the port)
 LIBRARY = {"blur2x_up": "conv_transpose2d", "blur2x_down": "stride-2 depthwise conv2d",
@@ -702,7 +740,7 @@ def inference_phases(build_root: Path) -> tuple[dict, dict]:
             if tuple(img.shape) != (BATCH, 512, 512, 3) or not bool(torch.isfinite(img).all()):
                 fail(f"bad main-path output {tuple(img.shape)}")
             want = {"fused_bias_act": 56 + 2 * 4 + 15, "fused_bias_act_grad": 0, "blur2x_up": 7,
-                    "blur2x_down": 0, "blur_sep": 0}
+                    "blur2x_down": 0, "blur_sep": 0, "dequant_int8": 0}
             if counts != want or any(counts[n] != expected[n] for n in INFER_KERNELS):
                 fail(f"launch counts {counts}, expected {expected} (79 and 7)")
             times = []
@@ -759,10 +797,10 @@ def g_counts(g) -> tuple[int, int, int]:
     return n_map, n_conv, len(g.to_rgbs)
 
 
-def row(fba: int, grad: int, up: int, down: int, sep: int = 0) -> dict:
+def row(fba: int, grad: int, up: int, down: int, sep: int = 0, dequant: int = 0) -> dict:
     """Launches of each kernel."""
     return {"fused_bias_act": fba, "fused_bias_act_grad": grad, "blur2x_up": up,
-            "blur2x_down": down, "blur_sep": sep}
+            "blur2x_down": down, "blur_sep": sep, "dequant_int8": dequant}
 
 
 def expected_step_counts(g, d, n_groups: int) -> dict:
@@ -895,10 +933,10 @@ def battery_timing(trainer, g_step_ms: float) -> None:
     they are timed together. Then the whole battery against the median
     ``g_step``."""
     from gan_control_torch.training import train_step as ts
-    from gan_control_torch.utils.precision import battery_dtype
+    from gan_control_torch.utils.precision import battery_compute_dtype, battery_dtype
 
     cfg = trainer.step_cfg
-    dtype = battery_dtype(cfg.predictor_dtype)
+    dtype = battery_compute_dtype(cfg.predictor_dtype)
     gen = torch.Generator(device="cuda").manual_seed(11)
     images = torch.randn((cfg.batch, 512, 512, 3), generator=gen, device="cuda").to(dtype) * 0.5
     groups: dict[str, list] = {}
@@ -911,7 +949,8 @@ def battery_timing(trainer, g_step_ms: float) -> None:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
             total, _ = ts._attr_losses_for_batch(specs, trainer.spec, trainer.predictors, x, cfg.num_mini,
-                                                 remat=cfg.remat_predictors, dtype=dtype)
+                                                 remat=cfg.remat_predictors,
+                                                 dtype=battery_dtype(cfg.predictor_dtype))
             ev[1].record()
             torch.autograd.grad(total, x)
             ev[2].record()
@@ -1623,7 +1662,7 @@ def predictor_card_vs_cpu(name: str, cpu_module, images: torch.Tensor, seed: int
     return {"layers": max(layer_errs), "grad_rel_l2": grad_rel, "grad_max": grad_max}
 
 
-def train_card_vs_cpu() -> None:
+def train_card_vs_cpu() -> tuple[dict, list, dict]:
     """Phase 9: iteration 0 of a size-32 model (max_channels 64, batch 16 in
     the config's 7-group arrangement, f32, TF32 off) on the card and on the
     CPU from the same parameters and explicit random inputs: each step
@@ -1632,7 +1671,9 @@ def train_card_vs_cpu() -> None:
     batch-norm statistics set from this G's images), its G gradients held
     to BATTERY_PARITY_RTOL. Before it, each of the battery's
     six nets on its own (``predictor_card_vs_cpu``) on two of those images
-    resized to 512 px."""
+    resized to 512 px. Returns 24d's inputs: the size-32 set-up (as
+    ``predictor_precision_probe.size32_setup`` gives it), the battery's
+    specs and the calibrated f32 battery."""
     from gan_control_torch.losses.registry import build_attr_losses, calibrate_battery, distinct_predictors
     from gan_control_torch.models.factory import build_discriminator, build_generator, build_group_spec
     from gan_control_torch.training import train_step as ts
@@ -1729,6 +1770,8 @@ def train_card_vs_cpu() -> None:
             f"tol {tol}")
         if loss_err > TRAIN_PARITY_RTOL or worst > tol:
             fail(f"{kind}: card and CPU disagree")
+    return ({"tc": tc, "spec": spec, "cfg": cfg, "g0": g0, "d0": d0, "z": z, "noise": noise, "img": img},
+            specs, cpu_preds)
 
 
 # ---------------------------------------------------------------------------
@@ -4102,7 +4145,7 @@ def blob_phase(build_root: Path, procs: dict, seen: Counter, counts: dict) -> No
         f"{json.dumps(v)}; launches {got}")
     if not control_fidelity.passed(v):
         fail(f"control fidelity missed its verdict: {v}")
-    if not all(got[n] for n in KERNELS):
+    if not all(got[n] for n in GD_KERNELS):
         fail(f"the control-fidelity run left a kernel unlaunched: {got}")
     add_counts(counts, got)
 
@@ -4670,6 +4713,429 @@ def measuring_finish(build_root: Path, started: dict, seen: Counter, counts: dic
         log(f"convert_weights: the card's and the CPU's {len(names)} msgpack files are byte for byte equal")
 
 
+# ---------------------------------------------------------------------------
+# phase 24: int8 storage of the battery, battery_share, profile_bench and
+# loader_bench (this slice)
+# ---------------------------------------------------------------------------
+
+INT8_ITERS = 2  # train(2) under int8 storage: iteration 0 runs all four steps
+SHARE_ROUNDS = 5  # battery_share's timed steps per leg
+DEQUANT_GRAPH_MS = 2.0  # a few calls per captured graph: each writes a fresh 561 MB buffer
+LOADER_ARGS = ["--images", "32", "--batches", "4", "--workers", "4"]
+# 24d: the card's distance from a reference, as a multiple of the CPU's
+# (predictor_precision_probe, section 3, on an H100 80GB HBM3 at 700 W,
+# battery seeds 3, 11, 19, TF32 off): each net's bf16 image gradient on
+# INT8_NET_ROWS images, card 0.96-1.13x the CPU's distance from float64;
+# the g_step's G gradients 0.87-1.31x the larger of the CPU's and the
+# CPU's with one rounding moved (itself 1.3-5.3x the CPU's)
+INT8_NET_FACTOR = 1.5
+INT8_CARD_FACTOR = 2.0
+INT8_NET_ROWS = 4
+INT8_CHILD_TIMEOUT = 600.0  # seconds 24d waits for its CPU side (it takes ~2 min beside phases 10-22)
+
+
+def dequant_kernel_check(battery) -> tuple[dict, float, str, float]:
+    """24a: the kernel on the whole store against its plain version,
+    bitwise in bf16 and f32; per launch its host-rate and device times, the
+    plain per-tensor loop's host-rate time, and the bound. Returns (times,
+    bound ms, what bounds it, the largest error)."""
+    from gan_control_torch.ops import kernels
+
+    args = (battery.q, battery.scales, battery.block_tensor, battery.segments)
+    err = 0.0
+    for dtype, bits in ((torch.bfloat16, torch.int16), (torch.float32, torch.int32)):
+        got = kernels._cuda_dequant_int8(*args, dtype)
+        want = kernels.dequant_int8_plain(*args, dtype)
+        torch.cuda.synchronize()
+        e, _ = max_err(got, want)
+        err = max(err, e)
+        if not torch.equal(got.view(bits), want.view(bits)):
+            fail(f"dequant_int8 {str(dtype)[6:]}: the kernel and its plain version differ (max abs err {e})")
+        del got, want
+    run = lambda: kernels._cuda_dequant_int8(*args, torch.bfloat16)  # noqa: E731
+    plain = lambda: kernels.dequant_int8_plain(*args, torch.bfloat16)  # noqa: E731
+    t = {"ms": cuda_ms(run), "plain_ms": cuda_ms(plain), "library_ms": None, "library_device_ms": None}
+    t["device_ms"] = device_ms(run, t["ms"], target_ms=DEQUANT_GRAPH_MS)
+    t_b, by = bound("dequant_int8", battery.q.shape, torch.int8, (torch.bfloat16, battery.num_tensors))
+    elements = sum(math.prod(shape) for shape, _ in battery.shapes)
+    log(f"kernel dequant_int8 {battery.num_tensors} tensors, {elements} elements in a store of "
+        f"{battery.q.numel()} (bf16 out): bitwise equal to the plain version (bf16 and f32); per launch "
+        + timing_text(t, t_b, by, None) + f"; the plain per-tensor loop host-rate {t['plain_ms']:.3f} ms "
+        f"({t['plain_ms'] / t['ms']:.1f}x the kernel's)")
+    return t, t_b, by, err
+
+
+def int8_train_phase(build_root: Path) -> tuple[Counter, dict, tuple]:
+    """24a-b: a ``GeneratorTrainer`` on configs/ffhq.json with
+    ``predictor_dtype: "int8"`` (FFHQ-512, batch 16, the six-net battery at
+    random init, as ``train_generator`` builds it); the kernel check on its
+    store; ``train(INT8_ITERS)`` with the counters set to 0 just before and
+    read just after, each step kind against ``expected_step_counts`` with
+    one dequantisation per ``g_step``; finite losses, the store unchanged,
+    every quantised tensor of the modules on the meta device, each step's
+    bf16 buffer freed with its step, the first one bitwise equal to the
+    plain version. Returns (recorded launches, counts, the kernel's 24a
+    numbers)."""
+    import weakref
+
+    from gan_control_torch.losses.int8_storage import Int8Battery
+    from gan_control_torch.losses.registry import distinct_predictors
+    from gan_control_torch.ops import kernels
+    from gan_control_torch.tools import train_mfu as tm
+    from gan_control_torch.trainers import generator_trainer as gt
+
+    config = tm.model_config(CONFIGS / "ffhq.json")
+    config["training_config"]["predictor_dtype"] = "int8"
+    with phase7_tf32():
+        with Phase("int8 build"):
+            trainer = tm.build_trainer(config, "cuda")
+            battery = trainer.predictors
+            if not isinstance(battery, Int8Battery) or len(distinct_predictors(battery)) != 6:
+                fail(f"int8 storage: the trainer's battery is {type(battery).__name__}")
+            floats = [f"{n}.{k}" for n, m in distinct_predictors(battery).items()
+                      for k, t in (*m.named_parameters(), *m.named_buffers()) if t.device.type != "meta"]
+            if floats:
+                fail(f"int8 storage: float tensors left in the modules: {floats[:5]}")
+            torch.cuda.synchronize()
+            log(f"int8 storage: {battery.num_tensors} tensors of {len(distinct_predictors(battery))} nets, "
+                f"store {battery.q.numel()} int8 + {battery.scales.numel()} scales, resident "
+                f"{battery.resident_bytes / 1e6:.2f} MB; card memory allocated "
+                f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+        with Phase("int8 kernel (24a)"):
+            kernel = dequant_kernel_check(battery)
+
+        st = trainer.state
+        per_kind = expected_step_counts(st.generator, st.discriminator, len(trainer.spec.groups))
+        per_kind["g_step"] = dict(per_kind["g_step"], dequant_int8=1)
+        q0, s0 = battery.q.clone(), battery.scales.clone()
+        buffers, checked = [], []
+        dequantize = battery.dequantize
+
+        def watched(dtype=torch.bfloat16):
+            out = dequantize(dtype)
+            buffers.append(weakref.ref(out))
+            if not checked:
+                want = kernels.dequant_int8_plain(battery.q, battery.scales, battery.block_tensor,
+                                                  battery.segments, dtype)
+                checked.append(torch.equal(out.view(torch.int16), want.view(torch.int16)))
+            return out
+
+        battery.dequantize = watched
+        seen: Counter = Counter()
+        with Phase("int8 main path (24b)"):
+            by_kind, restore = count_by_kind(gt)
+            remove = install_launch_recorder(seen)
+            trainer.profile_steps = True
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                trainer.train(INT8_ITERS)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+            finally:
+                remove()
+                restore()
+                del battery.dequantize
+            peak = torch.cuda.max_memory_allocated()
+            log(f"int8 main path: launches over train({INT8_ITERS}) {counts}")
+            runs = {k: len(v) for k, v in by_kind.items()}
+            if runs != {"d_step": INT8_ITERS, "d_reg_step": 1, "g_step": INT8_ITERS, "g_reg_step": 1}:
+                fail(f"int8: step kinds run {runs}")
+            for kind in gt.STEP_KINDS:
+                for got in by_kind[kind]:
+                    if got != per_kind[kind]:
+                        fail(f"int8 {kind}: launches {got}, expected {per_kind[kind]}")
+            if counts["dequant_int8"] != runs["g_step"]:
+                fail(f"int8: {counts['dequant_int8']} dequantisations over {runs['g_step']} g_steps")
+            if checked != [True]:
+                fail("int8: the g_step's dequantised weights differ from the plain version")
+            if len(buffers) != runs["g_step"] or any(b() is not None for b in buffers):
+                fail(f"int8: {sum(b() is not None for b in buffers)} of {len(buffers)} bf16 buffers outlived their step")
+            if not (torch.equal(battery.q, q0) and torch.equal(battery.scales, s0)):
+                fail("int8: the store changed in training")
+            if any(t.device.type != "meta" for m in distinct_predictors(battery).values()
+                   for t in (*m.parameters(), *m.buffers())):
+                fail("int8: a float copy of a quantised tensor is resident")
+            attr_names = [f"g_{al.name}" for al in trainer.attr_losses]
+            for h in trainer.metrics_history:
+                if not all(math.isfinite(v) for v in h.values()) or not all(n in h for n in attr_names):
+                    fail(f"int8: losses not finite or missing: {h}")
+                log(f"int8 train losses, iteration {h['iter']}: "
+                    + ", ".join(f"{n} {h[n]:.6g}" for n in attr_names) + f"; g_loss {h['g_loss']:.6g}")
+            for kind, ts_ in trainer.step_times.items():
+                log(f"int8 train time: {kind} {[round(t, 2) for t in ts_]} ms")
+            log(f"int8: one dequantisation per g_step, bitwise the plain version's; the store unchanged; "
+                f"no float copy resident and every step's bf16 buffer freed; peak memory "
+                f"{peak / 2**30:.2f} GiB, allocated after the steps {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+        with Phase("profile_bench train (24e)"):
+            from gan_control_torch.tools import profile_bench
+
+            out = profile_bench.profile_train(config, "cuda", "g_full", trainer=trainer)
+            log(f"profile_bench train on this trainer: {json.dumps(out)}")
+            if not (out["ms"] > 0 and math.isfinite(out["ms"])):
+                fail(f"profile_bench train: {out}")
+    trainer.close()
+    del trainer, battery, q0, s0, st
+    torch.cuda.empty_cache()
+    return seen, counts, kernel
+
+
+def battery_share_phase() -> None:
+    """24c: ``battery_share``'s four legs at FFHQ-512, batch 16 (the
+    launches of its int8 leg: one per step it runs)."""
+    from gan_control_torch.ops import kernels
+    from gan_control_torch.tools import battery_share as bs
+    from gan_control_torch.tools import train_mfu as tm
+
+    with Phase("battery_share (24c)"), phase7_tf32():
+        trainer, legs = bs.build_legs(tm.model_config(CONFIGS / "ffhq.json"), "cuda")
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            rows = bs.measure(legs, "cuda", SHARE_ROUNDS)
+            launches = kernels.launch_counts()["dequant_int8"]
+        finally:
+            trainer.close()
+        for r in rows:
+            log("battery_share " + bs.line(r) + f" (steps {[round(t, 2) for t in r['times_ms']]} ms)")
+        by = {r["name"]: r for r in rows}
+        f32, int8 = by["g_step_battery_f32"]["battery_bytes"], by["g_step_battery_int8"]["battery_bytes"]
+        if not all(math.isfinite(r["ms"]) and r["ms"] > 0 and r["peak_bytes"] > 0 for r in rows):
+            fail(f"battery_share: bad rows {rows}")
+        if not f32 / 4 < int8 < f32 / 3.5 or launches != 2 + SHARE_ROUNDS:
+            fail(f"battery_share: int8 battery {int8} B against f32 {f32} B, {launches} dequantisations")
+    del trainer, legs
+    torch.cuda.empty_cache()
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def int8_cpu_child(inputs: str, out: str) -> None:
+    """24d's CPU side, in a fresh interpreter on the CPU (four threads)
+    from the end of phase 9 on: from phase 9's size-32 model, images and
+    calibrated battery (``inputs``), the int8 store's digests and its
+    plain dequantisation's; per net (INT8_NET_ROWS images) the float64
+    witness's image gradient and the hair net's mask logit
+    (``predictor_precision_probe.int8_witness``) and the CPU's gradients
+    from the store (``int8_net_grads``); the witness's mask logit on all
+    the images; the size-32 ``g_step``'s G gradients with the battery in
+    f32 on the dequantised weights, in int8 storage, and in int8 storage
+    with one rounding moved (the resizes' forward from f32), the hair net
+    on the witness's mask. Writes them to ``out``."""
+    from gan_control_torch.losses.int8_storage import Int8Battery
+    from gan_control_torch.losses.registry import build_attr_losses, distinct_predictors
+    from gan_control_torch.ops import kernels
+    from gan_control_torch.tools import predictor_precision_probe as probe
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    saved = torch.load(inputs, weights_only=False)
+    setup = probe.size32_setup(json.loads(probe.CONFIG.read_text()))
+    setup["g0"].load_state_dict(saved["g0"])
+    setup["d0"].load_state_dict(saved["d0"])
+    setup.update(z=saved["z"], noise=saved["noise"], img=saved["img"])
+    specs, preds = build_attr_losses({**setup["tc"], "predictor_precision": "highest"}, device="cpu", seed=3)
+    for name, m in distinct_predictors(preds).items():
+        m.load_state_dict(saved["nets"][name])
+    cpu8 = Int8Battery(preds)
+    flat = kernels.dequant_int8_plain(cpu8.q, cpu8.scales, cpu8.block_tensor, cpu8.segments, torch.bfloat16)
+    res = {"q": _digest(cpu8.q), "scales": _digest(cpu8.scales), "dequant": _digest(flat), "nets": {}}
+    del flat
+    rows = setup["img"][:INT8_NET_ROWS]
+    for i, name in enumerate(distinct_predictors(cpu8)):
+        want, logit = probe.int8_witness(cpu8, name, rows, 300 + i)
+        res["nets"][name] = {"witness": want, "logit": logit,
+                             "cpu": probe.int8_net_grads(cpu8, name, rows, 300 + i, logit)}
+    witness = cpu8.float_module("hair_loss", torch.bfloat16).double()
+    with torch.no_grad():
+        res["logit"] = logit = witness.mask_logit(witness.resize_input(setup["img"].double()))
+    f32 = {id(m): cpu8.float_module(n) for n, m in distinct_predictors(cpu8).items()}
+    cpu32 = {n: f32[id(m)] for n, m in cpu8.items()}
+    for battery in (cpu8, cpu32):  # one hair mask everywhere: the witness's
+        battery["hair_loss"].mask_logit = lambda t: logit.to(t.device, t.dtype)
+    res["ref"] = probe.int8_g_step_grads(setup, specs, "float32", cpu32, "cpu")
+    res["cpu"] = probe.int8_g_step_grads(setup, specs, "int8", cpu8, "cpu")
+    with probe.resize_forward_from_f32():
+        res["moved"] = probe.int8_g_step_grads(setup, specs, "int8", cpu8, "cpu")
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, out)
+
+
+def int8_cpu_start(build_root: Path, setup: dict, specs, cpu_preds: dict) -> dict:
+    """Phase 9's inputs to 24d written to disk and :func:`int8_cpu_child`
+    started on them; returns what :func:`int8_card_vs_cpu` reads."""
+    import atexit
+
+    from gan_control_torch.losses.registry import distinct_predictors
+
+    root = build_root / "int8_24d"
+    root.mkdir(parents=True, exist_ok=True)
+    inputs, out = root / "inputs.pt", root / "cpu.pt"
+    out.unlink(missing_ok=True)
+    torch.save({"g0": setup["g0"].state_dict(), "d0": setup["d0"].state_dict(), "z": setup["z"],
+                "noise": setup["noise"], "img": setup["img"],
+                "nets": {n: m.state_dict() for n, m in distinct_predictors(cpu_preds).items()}}, inputs)
+    with open(root / "cpu_child.log", "w") as f:
+        child = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.int8_cpu_child({str(inputs)!r}, {str(out)!r})"],
+            stdout=f, stderr=subprocess.STDOUT, cwd=REPO)
+    atexit.register(child.kill)
+    return {"child": child, "out": out, "log": root / "cpu_child.log", "setup": setup, "specs": specs,
+            "cpu_preds": cpu_preds}
+
+
+def int8_card_vs_cpu(started: dict) -> None:
+    """24d: int8 storage on the card against the CPU, on phase 9's size-32
+    model and calibrated f32 battery (the CPU's side from
+    :func:`int8_cpu_child`, which ran meanwhile):
+
+      - the stores quantised on the card and on the CPU bitwise equal, and
+        the card's kernel dequantisation bitwise the CPU's plain one;
+      - the predictors' bf16 resize backward on the card (32 -> 256 px, the
+        hair net's) within one bf16 rounding of the CPU's f32 gradient
+        (F.interpolate's own bf16 backward, summed by bf16 atomics, is
+        logged beside it);
+      - each net's features on the card from the int8 store bitwise those
+        of a bf16 battery holding the dequantised weights;
+      - each net alone (INT8_NET_ROWS images, the hair net on the
+        witness's mask): the image gradient from the store dequantised to
+        f32 card against CPU to PREDICTOR_GRAD_REL_L2, and from the store
+        dequantised to bf16 the card no farther from a float64 witness on
+        the bf16 weights than INT8_NET_FACTOR times the CPU, plus
+        BATTERY_PARITY_RTOL;
+      - the ``g_step`` in int8 storage (the hair mask the witness's on
+        every side): the card's G gradients no farther from the CPU's f32
+        step on the dequantised weights than INT8_CARD_FACTOR times the
+        CPU's int8 step, or that step with one rounding moved (its
+        resizes' forward from f32), whichever lies farther, plus
+        BATTERY_PARITY_RTOL.
+
+    Why a factor and not BATTERY_PARITY_RTOL card against CPU: the random
+    battery is chaotic at 32 px, where every net upsamples its input, and
+    most in bf16 (ROADMAP Queue 3 item 17): moving one rounding of the
+    CPU's own int8 step moves its G gradients up to several times their
+    distance from f32 (``predictor_precision_probe``, section 3). The
+    card's f32 runs with TF32 off, as phase 9's."""
+    from gan_control_torch.losses.int8_storage import Int8Battery
+    from gan_control_torch.losses.predictors.common import resize_bilinear
+    from gan_control_torch.losses.registry import distinct_predictors
+    from gan_control_torch.tools import predictor_precision_probe as probe
+
+    setup, specs, cpu_preds = started["setup"], started["specs"], started["cpu_preds"]
+    try:
+        rc = started["child"].wait(timeout=INT8_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        rc = None
+    if rc != 0 or not started["out"].exists():
+        tail = started["log"].read_text()[-3000:]
+        fail(f"int8 card vs cpu: the CPU child ended with {rc}:\n{tail}")
+    cpu_res = torch.load(started["out"], weights_only=False)
+    log(f"int8 card vs cpu (24d): the CPU side took {cpu_res['seconds']:.1f} s in its own process")
+
+    def copies(device):
+        nets = {id(m): copy.deepcopy(m).to(device) for m in cpu_preds.values()}
+        for m in nets.values():
+            m.__dict__.pop("mask_logit", None)  # phase 9's hair-mask hook
+        return {n: nets[id(m)] for n, m in cpu_preds.items()}
+
+    card8 = Int8Battery(copies("cuda"), "cuda")
+    flat = card8.dequantize()
+    if (_digest(card8.q), _digest(card8.scales), _digest(flat)) != (cpu_res["q"], cpu_res["scales"],
+                                                                     cpu_res["dequant"]):
+        fail("int8 card vs cpu: the card's quantisation or dequantisation differs from the CPU's")
+    del flat
+
+    img = setup["img"]
+    x = img.permute(0, 3, 1, 2).to(torch.bfloat16)
+    g = torch.randn((x.shape[0], 3, 256, 256), generator=torch.Generator().manual_seed(7)).to(torch.bfloat16)
+    x32 = x.float().requires_grad_(True)
+    (want,) = torch.autograd.grad(F.interpolate(x32, size=(256, 256), mode="bilinear", align_corners=True),
+                                  x32, g.float())
+    errs = {}
+    for label, fn in (("port", resize_bilinear), ("F.interpolate", lambda t, hw, ac: F.interpolate(
+            t, size=hw, mode="bilinear", align_corners=ac))):
+        xc = x.cuda().requires_grad_(True)
+        (got,) = torch.autograd.grad(fn(xc, (256, 256), True), xc, g.cuda())
+        errs[label] = float((got.float().cpu() - want).abs().max() / want.abs().max())
+    log(f"int8 card vs cpu (24d): bf16 resize 32 -> 256 px backward on the card against the CPU's f32, largest "
+        f"error over max: the port's {errs['port']:.3g} (tol {2.0 ** -8:.3g}), F.interpolate's "
+        f"{errs['F.interpolate']:.3g}")
+    if errs["port"] > 2.0 ** -8:
+        fail("int8 card vs cpu: the predictors' bf16 resize backward is not the f32 sum rounded once")
+
+    views = card8.nets(torch.bfloat16)
+    card16 = copies("cuda")
+    with torch.no_grad():
+        for name, m in distinct_predictors(card16).items():
+            m.to(torch.bfloat16)
+            sd = m.state_dict()
+            for key, v in views[name].tensors.items():
+                sd[key].copy_(v)
+        for al in specs:
+            got = al.feature_fn(views[al.name], img.cuda().to(torch.bfloat16))
+            ref16 = al.feature_fn(card16[al.name], img.cuda().to(torch.bfloat16))
+            if not all(torch.equal(a, b) for a, b in zip(got, ref16)):
+                fail(f"int8 card: {al.name}'s features from the store differ from the bf16 battery's")
+    del views, card16
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i, name in enumerate(distinct_predictors(card8)):
+            net = cpu_res["nets"][name]
+            d = probe.int8_net_distances(net["witness"], net["cpu"], probe.int8_net_grads(
+                card8, name, img[:INT8_NET_ROWS], 300 + i, net["logit"]))
+            log(f"int8 card vs cpu (24d) {name}: image gradient of a projection, {INT8_NET_ROWS} rows, relative "
+                f"L2 from float64 on the bf16 weights: bf16 cpu {d['cpu_bf16']:.4g}, card {d['card_bf16']:.4g} "
+                f"(tol {INT8_NET_FACTOR} x cpu + {BATTERY_PARITY_RTOL}); f32 card from cpu "
+                f"{d['card_f32_vs_cpu_f32']:.3g} (tol {PREDICTOR_GRAD_REL_L2}; cpu {d['cpu_f32']:.4g}, card "
+                f"{d['card_f32']:.4g} from float64)")
+            if d["card_f32_vs_cpu_f32"] > PREDICTOR_GRAD_REL_L2 or \
+                    d["card_bf16"] > INT8_NET_FACTOR * d["cpu_bf16"] + BATTERY_PARITY_RTOL:
+                fail(f"int8 card vs cpu: {name}'s image gradient on the card departs from the CPU's")
+        logit = cpu_res["logit"]
+        card8["hair_loss"].mask_logit = lambda t: logit.to(t.device, t.dtype)
+        card = probe.int8_g_step_grads(setup, specs, "int8", card8, "cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    ref = cpu_res["ref"]
+    cpu_err, moved_err, card_err = (probe.g_rel_l2(g, ref) for g in (cpu_res["cpu"], cpu_res["moved"], card))
+    spread = max(cpu_err, moved_err)
+    log(f"int8 card vs cpu (24d): size-32 g_step in int8 storage, G gradients relative L2 from the CPU's f32 step "
+        f"on the dequantised weights: CPU {cpu_err:.4g}, CPU with one rounding moved {moved_err:.4g}, card "
+        f"{card_err:.4g} (tol {INT8_CARD_FACTOR} x the larger CPU's + {BATTERY_PARITY_RTOL}); card from CPU "
+        f"{probe.g_rel_l2(card, cpu_res['cpu']):.4g}")
+    if not all(bool(torch.isfinite(t).all()) for t in card.values()) or \
+            card_err > INT8_CARD_FACTOR * spread + BATTERY_PARITY_RTOL:
+        fail(f"int8 card vs cpu: the card's gradients are {card_err:.3g} from the f32 step, the CPU's {spread:.3g}")
+    del card8
+    torch.cuda.empty_cache()
+
+
+def developer_probes_phase() -> None:
+    """24e: ``profile_bench``'s generation at batch 128 (its ``g_full``
+    step ran on 24b's int8 trainer) and ``loader_bench`` on a small corpus
+    (the PIL loader; the native one where its library builds): a smoke
+    test of the tools, not a loader rate."""
+    from gan_control_torch.tools import loader_bench, profile_bench
+
+    with Phase("profile_bench (24e)"), phase7_tf32():
+        out = profile_bench.main(["gen"])
+        log(f"profile_bench: {json.dumps(out)}")
+        if not out["gen"]["full_ms"] > out["gen"]["mapping_ms"] > 0:
+            fail(f"profile_bench: {out}")
+    torch.cuda.empty_cache()
+    with Phase("loader_bench (24e)"):
+        rows = loader_bench.main(LOADER_ARGS)
+        for r in rows:
+            log(f"loader_bench: {json.dumps(r)}")
+        if not any(r.get("backend") == "python_pil" and r["imgs_per_s"] > 0 for r in rows):
+            fail(f"loader_bench: {rows}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4706,6 +5172,10 @@ def main() -> None:
         kernels.blur2x_up(probe.view(1, 2, 2, 8))
         kernels.blur2x_down(probe.view(1, 2, 2, 8))
         kernels.blur_sep(probe.view(1, 2, 2, 8), (0.5, 0.5), (0.5, 0.5), (1, 0))
+        block = kernels.DEQUANT_BLOCK
+        for dt in (torch.float32, torch.bfloat16):
+            kernels.dequant_int8(torch.zeros(block, dtype=torch.int8, device="cuda"), torch.ones(1, device="cuda"),
+                                 torch.zeros(1, dtype=torch.int32, device="cuda"), [(0, block)], dt)
         torch.cuda.synchronize()
 
     # 3-6. inference
@@ -4719,7 +5189,7 @@ def main() -> None:
     with Phase("train kernels"):
         totals = train_kernel_phase(seen)
         blur_sep_variant_check()
-    for n in KERNELS:
+    for n in GD_KERNELS:
         log(f"train({TRAIN_ITERS}) totals {n}: launches {counts[n]} " + totals_text(totals[n]))
     # the blur2x pair against the one PyTorch call that computes each
     for label, tot in (("blur2x_up over one generation call", infer_totals["blur2x_up"]),
@@ -4729,13 +5199,13 @@ def main() -> None:
             f"({tot['ms'] / tot['library_ms']:.2f}x); device {tot['device_ms']:.4f} ms vs "
             f"{tot['library_device_ms']:.4f} ms; bound {tot['bound_ms']:.4f} ms")
     with Phase("train card vs cpu (with the predictors on their own)"):
-        train_card_vs_cpu()
+        int8_started = int8_cpu_start(build_root, *train_card_vs_cpu())
 
     # 10-14. phase 2
     seen2, counts2 = phase2(build_root)
     with Phase("phase 2 kernels"):
         totals2 = train_kernel_phase(seen2, "phase 2", both_dtypes=False)
-    for n in KERNELS:
+    for n in GD_KERNELS:
         log(f"phase 2 totals {n}: launches {counts2[n]} " + totals_text(totals2[n]))
     merge_totals(totals, totals2)
 
@@ -4764,7 +5234,7 @@ def main() -> None:
     seen5, counts5 = afhq_metfaces_phase(build_root, ffhq_run, build_root / "evaluation" / "images")
     with Phase("afhq and metfaces kernels"):
         totals5 = train_kernel_phase(seen5, f"AFHQ and MetFaces train({NEW_ITERS})", both_dtypes=False)
-    for n in KERNELS:
+    for n in GD_KERNELS:
         log(f"afhq and metfaces totals {n}: launches {counts5[n]} " + totals_text(totals5[n]))
     if counts5 != {n: sum(c for key, c in seen5.items() if key[0] == n) for n in KERNELS}:
         fail(f"the AFHQ and MetFaces launch hooks disagree with the counters {counts5}")
@@ -4779,7 +5249,7 @@ def main() -> None:
     projection_phase(build_root, model_dir, seen6, counts6)
     with Phase("alignment and projection kernels"):
         totals6 = train_kernel_phase(seen6, "alignment and projection", both_dtypes=False)
-    for n in KERNELS:
+    for n in GD_KERNELS:
         log(f"alignment and projection totals {n}: launches {counts6[n]} " + totals_text(totals6[n]))
     if counts6 != {n: sum(c for key, c in seen6.items() if key[0] == n) for n in KERNELS} or counts6["blur_sep"]:
         fail(f"the alignment and projection launch hooks disagree with the counters {counts6}")
@@ -4790,7 +5260,7 @@ def main() -> None:
     with Phase("distributed kernels"):
         totals7 = train_kernel_phase(seen7, f"two-rank train_generator --iters {DIST_ITERS}",
                                      both_dtypes=False)
-    for n in KERNELS:
+    for n in GD_KERNELS:
         log(f"distributed totals {n}: launches {counts7[n]} " + totals_text(totals7[n]))
     merge_totals(totals, totals7)
 
@@ -4801,12 +5271,17 @@ def main() -> None:
     blob_procs = start_blob_children(build_root)
     marge_phase(build_root, seen8, counts8)
     meshed_serving_phase(build_root, seen8, counts8)
-    # 23b-c meanwhile: the measuring tools' untimed work
+    # 23b-c meanwhile: the measuring tools' untimed work; and 24a-b, 24d
+    # and 24e, which time no step
     measuring = measuring_start(build_root)
+    seen10, counts10, (t_dq, tb_dq, by_dq, err_dq) = int8_train_phase(build_root)
+    with Phase("int8 card vs cpu (24d)"):
+        int8_card_vs_cpu(int8_started)
+    developer_probes_phase()
     blob_phase(build_root, blob_procs, seen8, counts8)
     with Phase("phase 22 kernels"):
         totals8 = train_kernel_phase(seen8, "phase 22", both_dtypes=False)
-    for n in KERNELS:
+    for n in GD_KERNELS:
         log(f"phase 22 totals {n}: launches {counts8[n]} " + totals_text(totals8[n]))
     merge_totals(totals, totals8)
 
@@ -4815,9 +5290,21 @@ def main() -> None:
     measuring_finish(build_root, measuring, seen9, counts9)
     with Phase("phase 23 kernels"):
         totals9 = train_kernel_phase(seen9, "phase 23", both_dtypes=False)
-    for n in KERNELS:
+    for n in GD_KERNELS:
         log(f"phase 23 totals {n}: launches {counts9[n]} " + totals_text(totals9[n]))
     merge_totals(totals, totals9)
+
+    # 24. int8 storage of the battery (24a-b, 24d and 24e ran beside phase
+    # 22's blob-world processes) and battery_share's four legs
+    with Phase("phase 24 kernels"):
+        totals10 = train_kernel_phase(Counter({k: c for k, c in seen10.items() if k[0] != "dequant_int8"}),
+                                      f"int8 train({INT8_ITERS})", both_dtypes=False)
+    add_to_totals(totals10["dequant_int8"], counts10["dequant_int8"], t_dq, tb_dq, by_dq)
+    totals10["dequant_int8"]["max_abs_err"] = err_dq
+    for n in KERNELS:
+        log(f"phase 24 totals {n}: launches {counts10[n]} " + totals_text(totals10[n]))
+    merge_totals(totals, totals10)
+    battery_share_phase()
 
     entries = []
     for n, (route, src, replaces) in KERNELS.items():
@@ -4825,7 +5312,7 @@ def main() -> None:
         entries.append({
             "name": n, "route": route, "source": src, "replaces": replaces,
             "launches": counts[n] + counts2[n] + counts3[n] + counts4[n] + counts5[n] + counts6[n]
-            + counts7[n] + counts8[n] + counts9[n],
+            + counts7[n] + counts8[n] + counts9[n] + counts10[n],
             "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],

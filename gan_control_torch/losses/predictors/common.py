@@ -208,14 +208,46 @@ def center_crop(x: torch.Tensor, crop: int) -> torch.Tensor:
     return x[:, :, up : up + crop, left : left + crop]
 
 
+_RESIZE_BACKWARD = {"bilinear": torch.ops.aten.upsample_bilinear2d_backward,
+                    "bicubic": torch.ops.aten.upsample_bicubic2d_backward}
+
+
+class _ResizeF32Backward(torch.autograd.Function):
+    """``F.interpolate`` in the input's dtype whose input gradient is summed
+    in f32 and rounded once. CUDA's bf16 resize backward adds every output
+    pixel's share into the input gradient by atomics in bf16, which loses
+    the small shares of an upsampling: at 32 -> 256 px it lies 3e-2 of the
+    largest entry off the f32 sum on an H100, this one 2e-3, one rounding
+    (``chip_smoke.py`` 24d)."""
+
+    @staticmethod
+    def forward(ctx, x, out_hw, mode, align_corners):
+        ctx.meta = (list(x.shape), x.dtype, list(out_hw), mode, align_corners)
+        return F.interpolate(x, size=out_hw, mode=mode, align_corners=align_corners)
+
+    @staticmethod
+    def backward(ctx, g):
+        in_shape, dtype, out_hw, mode, align_corners = ctx.meta
+        gx = _RESIZE_BACKWARD[mode](g.float(), out_hw, in_shape, align_corners)
+        return gx.to(dtype), None, None, None
+
+
+def _resize(x: torch.Tensor, out_hw: tuple[int, int], mode: str, align_corners: bool) -> torch.Tensor:
+    if x.requires_grad and x.dtype in (torch.bfloat16, torch.float16):
+        return _ResizeF32Backward.apply(x, tuple(out_hw), mode, align_corners)
+    return F.interpolate(x, size=out_hw, mode=mode, align_corners=align_corners)
+
+
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int], align_corners: bool = False) -> torch.Tensor:
-    """NCHW bilinear resize, no antialias (torch's and the reference's)."""
-    return F.interpolate(x, size=out_hw, mode="bilinear", align_corners=align_corners)
+    """NCHW bilinear resize, no antialias (torch's and the reference's); in
+    bf16 its backward sums in f32."""
+    return _resize(x, out_hw, "bilinear", align_corners)
 
 
 def resize_bicubic(x: torch.Tensor, out_hw: tuple[int, int], align_corners: bool = False) -> torch.Tensor:
-    """NCHW bicubic resize (Keys kernel, a = -0.75, border-clamped taps)."""
-    return F.interpolate(x, size=out_hw, mode="bicubic", align_corners=align_corners)
+    """NCHW bicubic resize (Keys kernel, a = -0.75, border-clamped taps); in
+    bf16 its backward sums in f32."""
+    return _resize(x, out_hw, "bicubic", align_corners)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_size: int) -> torch.Tensor:

@@ -26,6 +26,7 @@ from gan_control_torch.losses.contrastive import (
     pairwise_mse_gram,
     pairwise_sq_l2,
 )
+from gan_control_torch.losses.int8_storage import Int8Battery
 from gan_control_torch.losses.predictors import PREDICTOR_MODULES, predictor_module
 from gan_control_torch.losses.predictors.common import calibrate_frozen_stats_, init_predictor_
 from gan_control_torch.losses.predictors.face3dmm import extract_feature
@@ -66,13 +67,23 @@ def distinct_predictors(predictors: dict[str, nn.Module]) -> dict[str, nn.Module
 
 def cast_predictor_params(predictors: dict[str, nn.Module], dtype,
                           device: str | torch.device | None = None) -> dict[str, nn.Module]:
-    """Cast the battery to ``dtype`` (``"float32"``, ``"bfloat16"`` or the
-    torch dtype; int8 raises) and, with ``device``, move it there, in place
-    and each distinct module once, so the recon-3d sub-losses keep sharing
-    one module. Under bf16 images every predictor op casts its weights to
-    bf16 at use anyway: storing them in bf16 does that rounding once and
-    halves the battery's weight reads. Returns ``predictors``."""
+    """Store the battery in ``dtype`` (``"float32"``, ``"bfloat16"``,
+    ``"int8"`` or the torch dtype) and, with ``device``, on that device,
+    each distinct module once, so the recon-3d sub-losses keep sharing one
+    module.
+
+    Float types cast the modules in place and return ``predictors``. Under
+    bf16 images every predictor op casts its weights to bf16 at use anyway:
+    storing them in bf16 does that rounding once and halves the battery's
+    weight reads. ``"int8"`` returns an ``int8_storage.Int8Battery`` of the
+    same modules, their floating tensors quantised per tensor into one int8
+    store and dequantised to bf16 once per ``g_step`` (a battery that is
+    one already is returned as it is)."""
     dtype = battery_dtype(dtype)
+    if dtype == torch.int8:
+        if isinstance(predictors, Int8Battery) or not predictors:
+            return predictors
+        return Int8Battery(predictors, device)
     for module in distinct_predictors(predictors).values():
         module.to(device=device, dtype=dtype)
     return predictors

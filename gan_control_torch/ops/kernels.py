@@ -17,6 +17,13 @@ written for the H100 here:
     ``blur_sep.launches``: 16-byte channel vectors per thread, or one
     channel per thread for any ``C`` and alignment (:func:`blur_sep_plan`).
 
+One more kernel has no Pallas counterpart: ``dequant_int8`` (Triton,
+``csrc/dequant_int8.py``) dequantises the int8 store of the frozen
+predictor battery (``losses/int8_storage.py``) in one launch, the work the
+JAX package leaves to an XLA convert per tensor
+(``gan_control_tpu/losses/registry.py:148``). It takes no gradient: the
+battery is frozen.
+
 The CUDA sources are built with ``nvcc`` into shared libraries with a plain
 C interface, bound through ``ctypes``, for ``sm_90a``.
 
@@ -738,6 +745,77 @@ blur_sep.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# kernel 5 (no Pallas counterpart): the battery's int8 store dequantised
+# (Triton)
+#
+# The store (losses/int8_storage.py) is one flat int8 buffer: tensor i
+# occupies ``segments[i] = (offset, length)``, both multiples of
+# DEQUANT_BLOCK (the tensor's elements, then zeros to the segment's end),
+# with one f32 scale ``scales[i]``; ``block_tensor[b]`` is the tensor of
+# block b. The output is the same layout in f32 or bf16.
+# ---------------------------------------------------------------------------
+
+# elements per program, and the alignment of every segment of the store
+DEQUANT_BLOCK = 2048
+
+
+def dequant_int8_plain(q: torch.Tensor, scales: torch.Tensor, block_tensor: torch.Tensor,
+                       segments, dtype: torch.dtype) -> torch.Tensor:
+    """Per tensor, ``(q.float() * s).to(dtype)`` over its segment: the eager
+    loop that the kernel replaces (``block_tensor`` is not read)."""
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    for i, (off, n) in enumerate(segments):
+        out[off:off + n] = (q[off:off + n].float() * scales[i]).to(dtype)
+    return out
+
+
+def _cuda_dequant_int8(q, scales, block_tensor, segments, dtype):
+    _require_cuda("dequant_int8", q, scales, block_tensor)
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    n_blocks = block_tensor.numel()
+    if n_blocks == 0:
+        return out
+    kernel = _triton_module("dequant_int8").dequant_int8_kernel
+    with torch.cuda.device(q.device):
+        kernel[(n_blocks,)](q, scales, block_tensor, out, BLOCK=DEQUANT_BLOCK, num_warps=4)
+    dequant_int8.launches += 1
+    return out
+
+
+def dequant_int8(q: torch.Tensor, scales: torch.Tensor, block_tensor: torch.Tensor, segments,
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The int8 store ``q`` (1-D, contiguous, a whole number of
+    ``DEQUANT_BLOCK`` blocks) dequantised into a new flat buffer of
+    ``dtype`` (float32 or bfloat16): ``(q.float() * s).to(dtype)`` with the
+    scale of each element's tensor, rounded to nearest even. ``scales``:
+    f32 ``[T]``; ``block_tensor``: int32, the tensor of each block;
+    ``segments``: each tensor's ``(offset, length)`` in elements. One launch
+    on the card, no gradient."""
+    for t in (q, scales, block_tensor):
+        _check_device("dequant_int8", t)
+    if dtype not in _DTYPES:
+        raise TypeError(f"dequant_int8: output dtype {dtype} not supported (float32, bfloat16)")
+    n_blocks = q.numel() // DEQUANT_BLOCK
+    if (q.dtype != torch.int8 or q.ndim != 1 or not q.is_contiguous()
+            or q.numel() != n_blocks * DEQUANT_BLOCK):
+        raise ValueError(f"dequant_int8: q must be a contiguous 1-D int8 tensor of whole "
+                         f"{DEQUANT_BLOCK}-element blocks")
+    if scales.dtype != torch.float32 or scales.shape != (len(segments),) or not scales.is_contiguous():
+        raise ValueError("dequant_int8: scales must be a contiguous f32 tensor, one per segment")
+    if block_tensor.dtype != torch.int32 or block_tensor.shape != (n_blocks,) \
+            or not block_tensor.is_contiguous():
+        raise ValueError("dequant_int8: block_tensor must be a contiguous int32 tensor, one per block")
+    if not (q.device == scales.device == block_tensor.device):
+        raise ValueError("dequant_int8: q, scales and block_tensor on different devices")
+    if _plain_path(q):
+        return dequant_int8_plain(q, scales, block_tensor, segments, dtype)
+    return _launch("dequant_int8", q, scales, block_tensor, segments, dtype)
+
+
+dequant_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # launches and their work
 # ---------------------------------------------------------------------------
 
@@ -749,6 +827,7 @@ _LAUNCHERS = {
     "blur2x_up": ("_cuda_blur2x_up", _up_plain),
     "blur2x_down": ("_cuda_blur2x_down", _down_plain),
     "blur_sep": ("_cuda_blur_sep", blur_sep_plain),
+    "dequant_int8": ("_cuda_dequant_int8", dequant_int8_plain),
 }
 
 
@@ -768,11 +847,14 @@ def _launch(name: str, *a):
 
 def launch_static_args(name: str, a: tuple) -> tuple:
     """The arguments of a launcher call that are not tensors (for
-    fused_bias_act_grad, whether it has the second-order bias term)."""
+    fused_bias_act_grad, whether it has the second-order bias term; for
+    dequant_int8, the output dtype and the number of tensors)."""
     if name == "fused_bias_act":  # x, bias, slope, scale
         return (a[2], a[3])
     if name == "fused_bias_act_grad":  # g, x, bias, gb, slope, scale
         return (a[3] is not None, a[4], a[5])
+    if name == "dequant_int8":  # q, scales, block_tensor, segments, dtype
+        return (a[4], len(a[3]))
     return tuple(a[1:])  # blur2x_up/down: (coefficients,); blur_sep: (rt, ct, pad)
 
 
@@ -780,9 +862,15 @@ def kernel_work(name: str, shape, dtype: torch.dtype, args=()) -> tuple[int, int
     """``(bytes, float operations)`` of one launch on an input of ``shape``
     and ``dtype``, with the launcher's static arguments ``args``
     (:func:`launch_static_args`): each input read once and each output
-    written once; the operations in f32, whatever the storage."""
+    written once; the operations in f32, whatever the storage (for
+    dequant_int8, ``shape`` and ``dtype`` are the int8 store's)."""
     numel = math.prod(shape)
     item = torch.tensor([], dtype=dtype).element_size()
+    if name == "dequant_int8":
+        # read q, the block table and the scales, write the output; one multiply each
+        out_dtype, n_tensors = args
+        out_item = torch.tensor([], dtype=out_dtype).element_size()
+        return numel * (item + out_item) + 4 * (numel // DEQUANT_BLOCK + n_tensors), numel
     c = shape[-1]
     if name == "fused_bias_act":
         return 2 * numel * item + c * 4, 4 * numel  # add, compare-select, 2 multiplies
@@ -852,7 +940,7 @@ def _(x, coefs):
 # counters
 # ---------------------------------------------------------------------------
 
-KERNELS = (fused_bias_act, fused_bias_act_grad, blur2x_up, blur2x_down, blur_sep)
+KERNELS = (fused_bias_act, fused_bias_act_grad, blur2x_up, blur2x_down, blur_sep, dequant_int8)
 
 
 def launch_counts() -> dict[str, int]:

@@ -20,12 +20,29 @@ CPU against float64: the numbers behind the battery's parity tolerances
    worst tensor's largest error over its largest entry, for the six losses
    together and each alone.
 
-It reports CPU numerics, not times; it takes a few minutes.
+3. Where a card is present, int8 storage (the bf16 battery that
+   ``predictor_dtype: "int8"`` runs) on the card and on the CPU, for the
+   battery seeds ``INT8_SEEDS`` (phase 9's is 3), with a float64 witness
+   on the store's bf16-rounded weights: per net (``int8_net_distances``),
+   the image gradient of a seeded projection of the layers on
+   ``INT8_NET_ROWS`` of the G's images, the hair net on the witness's
+   mask; then the size-32 ``g_step``'s G gradients in int8 storage on the
+   card and on the CPU against the CPU's f32 step on the dequantised
+   weights, and the CPU's int8 step again with its resizes' forward
+   rounded once from f32 (one rounding moved): how far a bf16 draw of this
+   random battery lands. These are the numbers behind ``chip_smoke.py``'s
+   ``INT8_NET_FACTOR`` and ``INT8_CARD_FACTOR``. The card's f32 runs with
+   TF32 off.
+
+It reports numerics, not times; it takes a few minutes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
+import importlib
 import json
 from pathlib import Path
 
@@ -33,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gan_control_torch.losses.int8_storage import Int8Battery
 from gan_control_torch.losses.predictors.common import Conv2d
 from gan_control_torch.losses.registry import build_attr_losses, calibrate_battery, distinct_predictors
 from gan_control_torch.models.factory import build_discriminator, build_generator, build_group_spec
@@ -41,6 +59,8 @@ from gan_control_torch.training.gan_losses import g_nonsaturating_loss
 from gan_control_torch.training.state import init_gan_state
 
 CONFIG = Path(__file__).resolve().parents[2] / "gan_control_tpu" / "configs" / "ffhq.json"
+INT8_SEEDS = (3, 11, 19)
+INT8_NET_ROWS = 4
 
 
 def _layers_and_grad(module, images, mask, proj_seed):
@@ -89,9 +109,9 @@ def nets_report(config: dict) -> None:
             print("  " + net_errors(name, m, images), flush=True)
 
 
-def g_step_report(config: dict) -> None:
-    """Phase 9's size-32 g_step: G gradients with the battery in f32 and in
-    float64."""
+def size32_setup(config: dict) -> dict:
+    """Phase 9's size-32 model (seeds as there): its step config, group
+    spec, G, D, z, noise, and the G's images at 32 px and resized to 512."""
     config = copy.deepcopy(config)
     config["model_config"].update(size=32, max_channels=64, mixed_precision=False)
     tc = config["training_config"]
@@ -108,14 +128,22 @@ def g_step_report(config: dict) -> None:
         for m in g0.modules():
             if type(m).__name__ == "NoiseInjection":
                 m.weight.fill_(0.3)
+        img, _ = ts._gen_images(init_gan_state(g0, d0, tc), cfg, spec, (z,), noise, None, arrange=True)
+        img512 = F.interpolate(img.permute(0, 3, 1, 2), size=(512, 512), mode="bilinear",
+                               align_corners=False).permute(0, 2, 3, 1).contiguous()
+    return {"tc": tc, "spec": spec, "cfg": cfg, "g0": g0, "d0": d0, "z": z, "noise": noise,
+            "img": img, "img512": img512}
+
+
+def g_step_report(config: dict) -> None:
+    """Phase 9's size-32 g_step: G gradients with the battery in f32 and in
+    float64."""
+    s = size32_setup(config)
+    tc, spec, cfg, g0, d0, z, noise, img = (s[k] for k in ("tc", "spec", "cfg", "g0", "d0", "z", "noise", "img"))
     state = init_gan_state(g0, d0, tc)
     d0.requires_grad_(False)
     specs, preds = build_attr_losses(tc, device="cpu", seed=3)
-    with torch.no_grad():
-        img, _ = ts._gen_images(state, cfg, spec, (z,), noise, None, arrange=True)
-        img512 = F.interpolate(img.permute(0, 3, 1, 2), size=(512, 512), mode="bilinear",
-                               align_corners=False).permute(0, 2, 3, 1).contiguous()
-    calibrate_battery(preds, img512[:4])
+    calibrate_battery(preds, s["img512"][:4])
     hair = preds["hair_loss"]
     with torch.no_grad():
         logit = hair.mask_logit(hair.resize_input(img))
@@ -140,10 +168,157 @@ def g_step_report(config: dict) -> None:
         print(f"  {label}: {errs[0][0]:.2e} ({errs[0][1]}); next {errs[1][0]:.2e} ({errs[1][1]})", flush=True)
 
 
+def _projection_grad(net, images: torch.Tensor, proj_seed: int, logit=None) -> torch.Tensor:
+    """The image gradient (f64, CPU) of a seeded f32 projection of the
+    layers of ``net`` (a module or a bound net of the store) on ``images``;
+    with ``logit`` the hair net's mask is that logit's."""
+    x = images.detach().clone().requires_grad_(True)
+    if logit is None:
+        feats = net(x)
+    else:
+        module = getattr(net, "module", net)  # the masked image reads no weight
+        feats = [module.masked_feature(module.resize_input(x), module.mask_from_logit(logit.to(x.device), x.dtype))]
+    gen = torch.Generator().manual_seed(proj_seed)
+    projs = [torch.randn(f.shape, generator=gen).to(x.device) for f in feats]
+    (grad,) = torch.autograd.grad(sum((f.float() * p).sum() for f, p in zip(feats, projs)), x)
+    return grad.detach().cpu().double()
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).norm() / want.norm())
+
+
+def int8_witness(cpu8: Int8Battery, loss_name: str, images: torch.Tensor, proj_seed: int):
+    """A float64 witness of ``loss_name``'s net on the store's bf16-rounded
+    weights, on ``images`` (NHWC f32, on the CPU): the image gradient of
+    the projection, and the hair net's mask logit (None for the others),
+    on which every side then runs."""
+    witness = cpu8.float_module(loss_name, torch.bfloat16).double()
+    logit = None
+    if hasattr(witness, "mask_logit"):
+        with torch.no_grad():
+            logit = witness.mask_logit(witness.resize_input(images.double()))
+    return _projection_grad(witness, images.double(), proj_seed, logit), logit
+
+
+def int8_net_grads(store: Int8Battery, loss_name: str, images: torch.Tensor, proj_seed: int, logit) -> dict:
+    """The projection's image gradient of ``loss_name``'s net from
+    ``store`` dequantised to bf16 (the ``g_step``'s compute) and to f32,
+    on the store's device."""
+    out = {}
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        x = images.to(store.q.device, dtype)
+        out[label] = _projection_grad(store.nets(dtype)[loss_name], x, proj_seed, logit)
+    return out
+
+
+def int8_net_distances(witness: torch.Tensor, cpu: dict, card: dict) -> dict:
+    """Relative L2 distances of ``int8_net_grads`` of the CPU's and the
+    card's stores from the witness, and of the card's f32 gradient from
+    the CPU's."""
+    out = {f"{dev}_{t}": _rel(grads[t], witness) for dev, grads in (("cpu", cpu), ("card", card))
+           for t in ("bf16", "f32")}
+    out["card_f32_vs_cpu_f32"] = _rel(card["f32"], cpu["f32"])
+    return out
+
+
+@contextlib.contextmanager
+def resize_forward_from_f32():
+    """The predictors' bf16 resizes computed in f32 and rounded once (the
+    forward takes other roundings; the backward is the same f32 sum)."""
+    saved = []
+    for name in ("arcface", "dex_age", "esr9", "face3dmm", "hair_pspnet", "hopenet"):
+        mod = importlib.import_module(f"gan_control_torch.losses.predictors.{name}")
+        for fn in ("resize_bilinear", "resize_bicubic"):
+            if hasattr(mod, fn):
+                orig = getattr(mod, fn)
+                saved.append((mod, fn, orig))
+                setattr(mod, fn, lambda x, hw, align_corners=False, orig=orig:
+                        orig(x.float(), hw, align_corners).to(x.dtype))
+    try:
+        yield
+    finally:
+        for mod, fn, orig in saved:
+            setattr(mod, fn, orig)
+
+
+def g_rel_l2(got: dict, want: dict) -> float:
+    """Relative L2 distance of two gradient sets over all their entries."""
+    num = sum(float(((got[k].double() - want[k].double()) ** 2).sum()) for k in want)
+    return (num / max(sum(float((want[k].double() ** 2).sum()) for k in want), 1e-300)) ** 0.5
+
+
+def int8_g_step_grads(setup: dict, specs, dtype: str, battery, device) -> dict:
+    """The G gradients of ``size32_setup``'s ``g_step`` with ``battery`` in
+    ``dtype`` on ``device`` (cuDNN's deterministic algorithms)."""
+    tc, spec, cfg, g0, d0, z, noise = (setup[k] for k in ("tc", "spec", "cfg", "g0", "d0", "z", "noise"))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        st = init_gan_state(copy.deepcopy(g0).to(device), copy.deepcopy(d0).to(device), tc)
+        ts.g_step(st, dataclasses.replace(cfg, predictor_dtype=dtype), spec, (z.to(device),),
+                  noise=[n.to(device) for n in noise], attr_losses=specs, predictors=battery)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return {n: t.grad.detach().cpu() for n, t in st.generator.named_parameters() if t.grad is not None}
+
+
+def int8_report(config: dict) -> None:
+    """3: int8 storage on the card and the CPU (see the module docstring),
+    the card's f32 with TF32 off, as ``chip_smoke.py``'s phase 9 runs."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = size32_setup(config)
+    tc, img = s["tc"], s["img"]
+    for seed in INT8_SEEDS:
+        specs, preds = build_attr_losses({**tc, "predictor_precision": "highest"}, device="cpu", seed=seed)
+        calibrate_battery(preds, s["img512"][:4])
+        stores = {}
+        for dev in ("cpu", "cuda"):
+            nets = {id(m): copy.deepcopy(m) for m in preds.values()}
+            stores[dev] = Int8Battery({n: nets[id(m)] for n, m in preds.items()}, dev)
+        cpu8, card8 = stores["cpu"], stores["cuda"]
+        print(f"== int8 storage, battery seed {seed}: per net, image gradient relative L2 from float64 "
+              f"({INT8_NET_ROWS} rows)", flush=True)
+        for i, name in enumerate(distinct_predictors(cpu8)):
+            rows = img[:INT8_NET_ROWS]
+            want, net_logit = int8_witness(cpu8, name, rows, 300 + i)
+            d = int8_net_distances(want, int8_net_grads(cpu8, name, rows, 300 + i, net_logit),
+                                   int8_net_grads(card8, name, rows, 300 + i, net_logit))
+            print(f"  {name}: bf16 cpu {d['cpu_bf16']:.4f} card {d['card_bf16']:.4f}; f32 cpu "
+                  f"{d['cpu_f32']:.2e} card {d['card_f32']:.2e}, card from cpu {d['card_f32_vs_cpu_f32']:.2e}",
+                  flush=True)
+        witness = cpu8.float_module("hair_loss", torch.bfloat16).double()
+        with torch.no_grad():
+            logit = witness.mask_logit(witness.resize_input(img.double()))
+        for store in (cpu8, card8):  # one hair mask everywhere: the witness's
+            store["hair_loss"].mask_logit = lambda x: logit.to(x.device, x.dtype)
+        f32 = {id(m): cpu8.float_module(n) for n, m in distinct_predictors(cpu8).items()}
+        cpu32 = {n: f32[id(m)] for n, m in cpu8.items()}
+        for m in f32.values():
+            if hasattr(m, "mask_logit"):
+                m.mask_logit = lambda x: logit.to(x.device, x.dtype)
+
+        def step(dtype, battery, dev):
+            return int8_g_step_grads(s, specs, dtype, battery, dev)
+
+        ref = step("float32", cpu32, "cpu")
+        cpu, card = step("int8", cpu8, "cpu"), step("int8", card8, "cuda")
+        with resize_forward_from_f32():
+            moved = step("int8", cpu8, "cpu")
+        cpu_err, card_err, moved_err = g_rel_l2(cpu, ref), g_rel_l2(card, ref), g_rel_l2(moved, ref)
+        print(f"  size-32 g_step, G gradients relative L2 from the CPU's f32 step: int8 cpu {cpu_err:.4f}, "
+              f"card {card_err:.4f}, cpu with one rounding moved {moved_err:.4f}; card from cpu "
+              f"{g_rel_l2(card, cpu):.4f}; card over the larger cpu distance "
+              f"{card_err / max(cpu_err, moved_err):.3f}", flush=True)
+
+
 def main() -> None:
     config = json.loads(CONFIG.read_text())
     nets_report(config)
     g_step_report(config)
+    if torch.cuda.is_available():
+        int8_report(config)
 
 
 if __name__ == "__main__":

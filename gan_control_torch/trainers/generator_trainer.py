@@ -86,6 +86,7 @@ from gan_control_torch.evaluation.tracker import Tracker
 from gan_control_torch.inference.inference import Inference
 from gan_control_torch.latent.groups import random_arrangement
 from gan_control_torch.losses.contrastive import pairwise_sq_l2
+from gan_control_torch.losses.int8_storage import Int8Battery
 from gan_control_torch.losses.predictors import predictor_module
 from gan_control_torch.losses.predictors.esr9 import EXPRESSION_CLASSES
 from gan_control_torch.losses.registry import build_eval_only, build_predictor, cast_predictor_params
@@ -149,10 +150,12 @@ class GeneratorTrainer:
         (a missing path raises). ``attr_losses`` and ``predictors`` come
         from ``losses.registry.build_attr_losses``; the predictors are moved
         to ``device`` and cast to ``predictor_dtype`` in place (the
-        recon-3d sharing kept). ``transfer_learning_model`` (``enabled``,
-        ``model_path``: a phase-1 run directory) loads G from that run's
-        ``g_ema``; ``ckpt_config`` (``enabled``, ``ckpt``) then resumes from a
-        whole-state checkpoint of either package."""
+        recon-3d sharing kept), or under ``"int8"`` quantised into one
+        store (``losses/int8_storage.py``), their float tensors freed.
+        ``transfer_learning_model`` (``enabled``, ``model_path``: a phase-1
+        run directory) loads G from that run's ``g_ema``; ``ckpt_config``
+        (``enabled``, ``ckpt``) then resumes from a whole-state checkpoint
+        of either package."""
         if (config_path is None) == (config is None):
             raise ValueError("give exactly one of config_path and config")
         self.config = dict(config) if config is not None else read_json(config_path)
@@ -207,8 +210,9 @@ class GeneratorTrainer:
             predictor_dtype=tc.get("predictor_dtype", "float32"),
         )
         self.attr_losses = tuple(attr_losses)
-        self.predictors = cast_predictor_params(dict(predictors or {}), self.step_cfg.predictor_dtype,
-                                                device=self.device)
+        self.predictors = cast_predictor_params(
+            predictors if isinstance(predictors, Int8Battery) else dict(predictors or {}),
+            self.step_cfg.predictor_dtype, device=self.device)
         self.seed = tc.get("seed", 0)
         generator = build_generator(self.config, self.spec, device=self.device, seed=self.seed)
         discriminator = build_discriminator(self.config, device=self.device, seed=self.seed + 1)
@@ -488,7 +492,12 @@ class GeneratorTrainer:
 
     def _predictor(self, loss_name: str) -> nn.Module:
         """The battery's net of ``loss_name``, or an eval-only one built once
-        from its block (pretrained or random weights, seed 23)."""
+        from its block (pretrained or random weights, seed 23). Under int8
+        storage the battery's net comes dequantised to f32, a copy that
+        lives as long as the caller holds it (the JAX evaluations raise on
+        the quantised leaves)."""
+        if isinstance(self.predictors, Int8Battery) and loss_name in self.predictors:
+            return self.predictors.float_module(loss_name)
         if loss_name in self.predictors:
             return self.predictors[loss_name]
         if loss_name not in self._eval_predictors:
@@ -675,7 +684,7 @@ class GeneratorTrainer:
 
         def preds_for(loss_name: str) -> np.ndarray:
             if loss_name not in cache:
-                model = self.predictors[loss_name]
+                model = self._predictor(loss_name)
                 imgs = (mat01 * 2.0 - 1.0).to(next(model.parameters()).dtype)
                 with predictor_precision_ctx(self.tc.get("predictor_precision")):
                     out = predictor_module(loss_name).predict(model, imgs)

@@ -32,7 +32,8 @@ returns. Every random input a step draws can be passed explicitly
 ``path_noise``); otherwise it comes from ``state.rng``.
 
 The attribute losses: the G's images go to the battery in
-``predictor_dtype``; each predictor's features come back to f32 before any
+``predictor_dtype`` (bf16 under int8 storage, the weights dequantised once
+per step); each predictor's features come back to f32 before any
 distance (the thresholds were calibrated on f32 distances); each mini-batch
 chunk is split into its group's rows and the rest (with an
 ``arrangement``: the criterion reads its pair masks), and the losses are
@@ -87,6 +88,7 @@ from gan_control_torch.losses.contrastive import (
     contrastive_loss,
     contrastive_loss_masked,
 )
+from gan_control_torch.losses.int8_storage import Int8Battery
 from gan_control_torch.training.gan_losses import (
     d_logistic_loss,
     g_nonsaturating_loss,
@@ -148,7 +150,8 @@ class TrainStepConfig:
     # re-run each frozen predictor in the backward instead of holding every
     # predictor's activations at once
     remat_predictors: bool = True
-    # the battery's dtype: "float32" (the reference) or "bfloat16"
+    # the battery's storage dtype: "float32" (the reference), "bfloat16" or
+    # "int8" (dequantised to bf16 once per g_step)
     predictor_dtype: str = "float32"
 
     @property
@@ -258,10 +261,19 @@ def _attr_losses_for_batch(
     over the ``num_mini`` mini-batch chunks, and each loss as a metric
     ``g_<name>``. With ``arrangement`` (its tables as tensors on the images'
     device) the pairs come from its masks instead of the spec's slots.
+    ``dtype`` is the battery's storage dtype: under int8 ``predictors`` is
+    the ``Int8Battery`` of ``cast_predictor_params``, dequantised here to
+    bf16 in one launch, before any net and outside the checkpoints (as the
+    JAX step dequantises before it casts the images), and the nets and the
+    images run in bf16.
     The criterion reads the features of the global batch: inside
     ``collectives.sharded_batch`` each layer it weighs is gathered over the
     ranks (a layer of weight 0, which it skips, stands in as zeros)."""
-    images = images.to(dtype)
+    if dtype == torch.int8:
+        if not isinstance(predictors, Int8Battery):
+            raise TypeError("int8 storage runs on the battery of cast_predictor_params(predictors, 'int8')")
+        predictors = predictors.nets(torch.bfloat16)
+    images = images.to(torch.bfloat16 if dtype == torch.int8 else dtype)
     n_rows = collectives.global_batch(images.shape[0])[0]
     mb = n_rows // num_mini
 

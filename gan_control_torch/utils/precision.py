@@ -14,7 +14,7 @@ backward begins and gives the caller's back where it ends. The G and D
 keep the process's setting. A bf16 battery is unaffected.
 
 ``battery_dtype`` maps ``training_config.predictor_dtype`` to the battery's
-storage and compute dtype.
+storage dtype, ``battery_compute_dtype`` to the dtype it computes in.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 ENV_VAR = "GANCTL_PREDICTOR_PRECISION"
 VALID = ("default", "tensorfloat32", "highest")
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
 def predictor_precision(config_value: str | None = None, fallback: str = "highest") -> str:
@@ -132,18 +132,25 @@ def with_predictor_precision(fn: Callable[..., Any], config_value: str | None = 
 
 
 def battery_dtype(dtype: str | torch.dtype) -> torch.dtype:
-    """``"float32"``/``"bfloat16"`` (or the torch dtype) -> the torch dtype.
-    The JAX package's int8 storage experiment is not ported."""
+    """``"float32"``, ``"bfloat16"`` or ``"int8"`` (or the torch dtype) ->
+    the battery's storage dtype. Float32 and bfloat16 batteries compute in
+    their storage dtype; int8 storage (per-tensor symmetric, as the JAX
+    package's ``predictor_dtype: "int8"``) computes in bfloat16
+    (:func:`battery_compute_dtype`). Any other dtype raises ``ValueError``."""
     if isinstance(dtype, torch.dtype):
         value = dtype
     elif dtype in _DTYPES:
         value = _DTYPES[dtype]
-    elif dtype == "int8":
-        value = torch.int8
     else:
         raise ValueError(f"predictor_dtype {dtype!r}: expected one of {sorted(_DTYPES)}")
-    if value == torch.int8:
-        raise NotImplementedError("int8 predictor storage is not ported to gan_control_torch")
     if value not in _DTYPES.values():
-        raise ValueError(f"predictor_dtype {value}: expected float32 or bfloat16")
+        raise ValueError(f"predictor_dtype {value}: expected float32, bfloat16 or int8")
     return value
+
+
+def battery_compute_dtype(dtype: str | torch.dtype) -> torch.dtype:
+    """The dtype the battery's images and weights are in while it runs:
+    bfloat16 for int8 storage (the weights dequantised once per step),
+    else the storage dtype."""
+    value = battery_dtype(dtype)
+    return torch.bfloat16 if value == torch.int8 else value

@@ -38,6 +38,7 @@ from gan_control_tpu.training.train_step import TrainStepConfig as JStepConfig
 from gan_control_tpu.training.train_step import make_train_steps
 
 from gan_control_torch.data.datasets import synthetic_data_loader
+from gan_control_torch.losses.int8_storage import Int8Battery
 from gan_control_torch.losses.predictors import predictor_module
 from gan_control_torch.losses.predictors.common import calibrate_frozen_stats_, init_predictor_
 from gan_control_torch.losses.registry import build_attr_losses, cast_predictor_params
@@ -115,7 +116,9 @@ def test_build_attr_losses_on_the_ffhq_block(ffhq_battery):
 def test_cast_predictor_params_keeps_the_sharing(ffhq_battery):
     """bf16 storage of each distinct module once: the recon sub-loss still
     names the R-Net; buffers (batch-norm statistics) are cast too, as the
-    JAX cast does every floating leaf. int8 storage is not ported."""
+    JAX cast does every floating leaf. int8 storage quantises each distinct
+    module once into one store: the sub-loss still names the R-Net, whose
+    tensors are stored once."""
     _, predictors = ffhq_battery
     small = {"recon_3d_loss": predictors["recon_3d_loss"], "recon_gamma_loss": predictors["recon_3d_loss"],
              "expression_loss": copy.deepcopy(predictors["expression_loss"])}
@@ -126,11 +129,16 @@ def test_cast_predictor_params_keeps_the_sharing(ffhq_battery):
         assert out is small and out["recon_gamma_loss"] is out["recon_3d_loss"] is rnet
         for m in out.values():
             assert all(t.dtype == torch.bfloat16 for t in m.state_dict().values())
-        with pytest.raises(NotImplementedError):
-            cast_predictor_params(small, "int8")
+        int8 = cast_predictor_params({k: copy.deepcopy(v) if k == "expression_loss" else v
+                                      for k, v in small.items()}, "int8")
+        assert isinstance(int8, Int8Battery) and cast_predictor_params(int8, "int8") is int8
+        assert int8["recon_gamma_loss"] is int8["recon_3d_loss"] is rnet
+        assert int8.num_tensors == len(saved) + len(small["expression_loss"].state_dict())
+        assert int8.q.dtype == torch.int8 and set(int8.quantized("recon_gamma_loss")) == set(saved)
+        assert all(t.device.type == "meta" for t in rnet.state_dict().values())
     finally:
-        rnet.to(torch.float32)
-        rnet.load_state_dict(saved)
+        rnet.load_state_dict(saved, assign=True)
+        rnet.requires_grad_(False)
 
 
 def _shipped_block(name):

@@ -319,8 +319,11 @@ def test_battery_dtype():
     assert precision.battery_dtype("float32") is torch.float32
     assert precision.battery_dtype("bfloat16") is torch.bfloat16
     assert precision.battery_dtype(torch.bfloat16) is torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        precision.battery_dtype("int8")
+    # int8 is a storage dtype: the battery computes in bf16, as the JAX step
+    assert precision.battery_dtype("int8") is torch.int8
+    assert precision.battery_dtype(torch.int8) is torch.int8
+    assert precision.battery_compute_dtype("int8") is torch.bfloat16
+    assert precision.battery_compute_dtype("float32") is torch.float32
     for bad in ("float16", torch.float16):
         with pytest.raises(ValueError):
             precision.battery_dtype(bad)

@@ -261,7 +261,7 @@ def test_rematerialised_generator_matches_the_plain_one(phase1_dir, table, tmp_p
         n_head, n_conv, n_up = tr.controller.n_mlp, 1 + len(g.convs), len(g.to_rgbs)
         assert counts == {"fused_bias_act": n_head + n_conv + (len(g.convs) if remat else 0),
                           "fused_bias_act_grad": n_head + n_conv, "blur2x_up": n_up,
-                          "blur2x_down": n_up, "blur_sep": 0}, counts
+                          "blur2x_down": n_up, "blur_sep": 0, "dequant_int8": 0}, counts
 
 
 def test_port_trained_head_loads_in_both_controllers(phase1_dir, table, tmp_path):

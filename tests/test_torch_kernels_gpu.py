@@ -153,7 +153,8 @@ def test_tiny_controller_card_matches_cpu(cuda_device, tmp_path):
         got, _, _ = card.gen_batch_by_controls(latent=z, normalize=False, orientation=o)
         torch.cuda.synchronize()
         assert kernels.launch_counts() == {"fused_bias_act": 2 * 2 + 2 + 7, "fused_bias_act_grad": 0,
-                                           "blur2x_up": 3, "blur2x_down": 0, "blur_sep": 0}
+                                           "blur2x_up": 3, "blur2x_down": 0, "blur_sep": 0,
+                                           "dequant_int8": 0}
         scale = max(1.0, float(want.abs().max()))
         assert float((got.cpu() - want).abs().max()) <= tol * scale
 

@@ -154,9 +154,13 @@ def test_kernel_wrappers_check_layout_and_count_only_launches():
     kernels.blur2x_up(x)
     kernels.blur2x_down(x)
     kernels.blur_sep(x, (0.5, 0.5), (0.5, 0.5), (1, 0))
+    block = kernels.DEQUANT_BLOCK
+    kernels.dequant_int8(torch.zeros(block, dtype=torch.int8), torch.ones(1), torch.zeros(1, dtype=torch.int32),
+                         [(0, block)])
     # CPU tensors take the plain versions: nothing was launched
     assert kernels.launch_counts() == {"fused_bias_act": 0, "fused_bias_act_grad": 0,
-                                       "blur2x_up": 0, "blur2x_down": 0, "blur_sep": 0}
+                                       "blur2x_up": 0, "blur2x_down": 0, "blur_sep": 0,
+                                       "dequant_int8": 0}
     nchw_view = x.permute(0, 3, 1, 2)
     with pytest.raises(ValueError):
         kernels.fused_bias_act(nchw_view, torch.zeros(4))

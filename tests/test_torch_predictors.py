@@ -464,6 +464,32 @@ def test_frozen_batch_norm_folds_in_f32_for_bf16_weights():
 
 
 
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_bf16_resize_sums_its_backward_in_f32(mode, align_corners):
+    """In bf16 the predictors' resizes run ``F.interpolate`` forward, and
+    their input gradient is the f32 gradient rounded once (a 32-px image
+    upsampled to 224 px, as the battery's nets take the size-32 G's
+    images, and downsampled to 12 px)."""
+    from gan_control_torch.losses.predictors.common import resize_bicubic, resize_bilinear
+
+    fn = resize_bilinear if mode == "bilinear" else resize_bicubic
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32)).permute(0, 3, 1, 2)
+    for hw in ((224, 224), (12, 12)):
+        g = torch.from_numpy(rng.standard_normal((2, 3, *hw)).astype(np.float32)).to(torch.bfloat16)
+        x16 = x.to(torch.bfloat16).requires_grad_(True)
+        y = fn(x16, hw, align_corners)
+        (got,) = torch.autograd.grad(y, x16, g)
+        x32 = x16.detach().float().requires_grad_(True)
+        y32 = torch.nn.functional.interpolate(x32, size=hw, mode=mode, align_corners=align_corners)
+        (want,) = torch.autograd.grad(y32, x32, g.float())
+        assert y.dtype == got.dtype == torch.bfloat16
+        assert torch.equal(y, torch.nn.functional.interpolate(x16.detach(), size=hw, mode=mode,
+                                                              align_corners=align_corners))
+        assert torch.equal(got, want.to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("loss_name", ["expression_loss", "age_loss"])
 def test_calibrate_frozen_stats_normalises_each_layer(loss_name):
     """After ``calibrate_frozen_stats_`` on a batch, each batch norm (ESR-9)

@@ -67,7 +67,7 @@ def test_projector_steps_launch_the_kernels_and_match_the_cpu(cuda_device):
     n_conv = sum(isinstance(m, StyledConv) for m in g.modules())
     n_up = len(g.to_rgbs)
     want = {"fused_bias_act": n_conv, "fused_bias_act_grad": n_conv, "blur2x_up": n_up,
-            "blur2x_down": n_up, "blur_sep": 0}
+            "blur2x_down": n_up, "blur_sep": 0, "dequant_int8": 0}
     for i in range(STEPS):
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
