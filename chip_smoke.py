@@ -43,7 +43,8 @@ seconds:
     ``g_ema`` generates through ``Inference``; the median of a few plain
     iterations (d_step + g_step) between syncs, and the device time by
     kernel of one more iteration;
- 7b. training from an image folder: 64 RGB PNGs of 1024 px written from a
+ 7b. training from an image folder (its first command line beside phase 9,
+    on a thread that sends the signal): 64 RGB PNGs of 1024 px written from a
     seed (as FFHQ's images1024x1024); ``python -m
     gan_control_torch.train_generator`` on configs/ffhq.json at full width,
     batch 16, with the six-loss battery at random init and
@@ -80,7 +81,7 @@ seconds:
     CPU's mask;
 10. phase-2a sweep: an FFHQ-512 phase-1 directory at random init (phase
     3's writer), then ``python -m gan_control_torch.make_attributes_df
-    --batch_size 40 --number_of_samples 1280`` into
+    --batch_size 40 --number_of_samples 640`` into
     ``build/gan_control_torch/attributes.npz`` (the config's six predictors
     at random init, f32); the table's columns and shapes are the JAX
     sweep's, every value finite, ``latents_w`` the port's mapping of
@@ -90,7 +91,7 @@ seconds:
 11. phase-2b ``latent_rec``: configs/controller_configs/ffhq/age_controller.json
     with its paths under build/ and evaluations and saves every 100
     iterations, through ``python -m gan_control_torch.train_controller
-    --iters 200``: finite metrics, checkpoints, dual grids, the median
+    --iters 100``: finite metrics, checkpoints, dual grids, the median
     iteration and the config's 800 000 iterations at that rate; launches and
     ms per step in-process;
 12. ``attribute_rec``: the same config in-process with losses
@@ -124,7 +125,9 @@ seconds:
     TF32 off against the CPU; then every (kernel, shape, dtype) that the
     serving path and that f32 check launched, forward and backward against
     the plain version, with its times and bound;
-16. evaluation: 2304 seeded RGB PNGs of 256 px; ``python -m
+16. evaluation (phase 18's two command lines run beside its own, which
+    time nothing, and end before its in-process part): 2304 seeded RGB PNGs
+    of 256 px; ``python -m
     gan_control_torch.calc_inception --size 512 --n_samples 2304`` (random
     Inception, with its warning) writes the real statistics; ``python -m
     gan_control_torch.train_generator --iters 3`` on configs/ffhq.json at
@@ -203,7 +206,9 @@ seconds:
     version, with its times and bound;
 21. data parallelism across processes (ranks started as torchrun starts
     them, by ``torch.multiprocessing`` or ``torchrun --standalone``; a rank
-    that fails fails the script): (a) phase 9's size-32 model (f32, TF32
+    that fails fails the script; the processes of (a), (c) and (d), which
+    time nothing, run at once while this process computes what they are
+    held to, then (b) alone): (a) phase 9's size-32 model (f32, TF32
     off) with ADA adaptive, a small contrastive net and path length, each
     of the four steps from one state on two ranks sharing the card over
     gloo and on one rank over NCCL, each gradient against the one-process
@@ -226,9 +231,10 @@ seconds:
     this script: the head and the logged metrics;
 22. the blob world, the marge mapping and meshed serving: (a) ``python -m
     gan_control_torch.tools.convergence --bf16``'s ``run`` (600
-    iterations, 32 px, batch 8, the toy battery) and, beside it in a
-    second process, (b) ``control_fidelity.run`` at 400 / 600 iterations
-    and 2048 rows (cut from 1000 / 2000 / 4096), each process with its
+    iterations, 32 px, batch 8, the toy battery) and, in a second
+    process started before phase 19, (b) ``control_fidelity.run`` at 1000
+    / 600 iterations and 2048 rows (the heads and rows cut from 2000 /
+    4096), each process with its
     counters set to 0 just before its run and read just after (and its
     launches recorded by shape): (a)'s launches against counts derived
     from the blob model's modules and the trainer's cadence and the JAX
@@ -309,13 +315,40 @@ seconds:
     bounds); (e) ``profile_bench`` (its ``g_full`` step on (b)'s trainer,
     generation at batch 128) and ``loader_bench`` on 32 seeded JPEGs, as
     smoke tests of the tools;
-25. the script's total seconds; one JSON line of per-kernel numbers over
-    ``train(5)``, the phase-2 launches of phases 10-12, the serving
+25. float16 storage of the battery, ``collective_scaling`` and the
+    notebook ((b) and (d) beside phase 22's blob-world processes, (c)'s CPU
+    ranks from phase 22 on, (a) after 24c): (a) 24b's trainer with its
+    battery recast (the six nets drawn again from its seed, their
+    batch-norm statistics set from four of its G images: at random init the
+    R-Net overflows float16, in the JAX package too) and stored in float16;
+    ``train(2)`` with the counters set to 0 just before and read just
+    after, each step kind against ``expected_step_counts``, finite losses
+    and G gradients, the battery unchanged and in float16; then ``g_step``
+    in float16 against the same weights in bf16 and the adversarial loss
+    alone (synced median of 5, the legs in turn), FLOPs, bytes, resident
+    battery bytes and peaks; (b) on phase 9's size-32 model and calibrated
+    battery, the CPU's side in 24d's process: the predictors' float16
+    resize backward within one float16 rounding of the f32 sum, each net's
+    image gradient card against CPU (f32, and float16 against a float64
+    witness on the float16 weights) and the size-32 float16 ``g_step``'s G
+    gradients against the CPU's f32 step (``float16_card_vs_cpu`` gives the
+    bounds), each float16 reading again with cuBLAS's float16
+    reduced-precision reduction off; (c) ``python -m
+    gan_control_torch.tools.collective_scaling`` on phase 7's plain
+    iteration: its JSON names this card, its parameter bytes are the JAX
+    tool's, each step all-reduces its gradients once at their bytes; (d)
+    ``gan_control_torch/examples/gan_control_inference_example.ipynb``'s
+    code cells on the card against phase 13's controller directory, its
+    four images written, its launches counted;
+26. the slowest phases' seconds, the script's total seconds; one JSON
+    line of per-kernel numbers over ``train(5)``, the phase-2 launches of
+    phases 10-12, the serving
     launches of phase 15, the evaluation launches of phase 16, the AFHQ and
     MetFaces launches of phase 18, the alignment and projection launches
     of phases 19-20, the two ranks' launches of phase 21b, phase 22's
-    launches, phase 23's and phase 24's (launches, times and bounds summed
-    over the ten), then the card's line and the result line.
+    launches, phase 23's, phase 24's and phase 25's (launches, times and
+    bounds summed over the eleven), then the card's line and the result
+    line.
 
 Times, per launch at each shape and summed over a path's launches:
 "host-rate" is the mean over back-to-back eager calls between two CUDA
@@ -334,6 +367,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import hashlib
 import json
 import logging
@@ -428,8 +462,13 @@ def fail(msg: str) -> None:
     sys.exit(2)
 
 
+_T0 = time.perf_counter()
+PHASE_SECONDS: list[tuple[str, float]] = []  # every phase that ended, in order
+
+
 class Phase:
-    """Prints a phase's seconds when it ends."""
+    """Prints a phase's seconds (and the script's seconds when it ends) and
+    keeps them for the summary before the result lines."""
 
     def __init__(self, name: str):
         self.name = name
@@ -440,7 +479,9 @@ class Phase:
 
     def __exit__(self, *exc):
         if exc[0] is None:
-            log(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s")
+            now = time.perf_counter()
+            PHASE_SECONDS.append((self.name, now - self.t0))
+            log(f"phase {self.name}: {now - self.t0:.1f} s (at {now - _T0:.1f} s)")
 
 
 def cuda_ms(fn, min_total_ms: float = 30.0) -> float:
@@ -1232,20 +1273,35 @@ def log_time(line: str) -> float:
     return int(h) * 3600 + int(m) * 60 + int(sec) + int(ms) / 1e3
 
 
-def image_folder_phase(build_root: Path, synthetic: dict) -> Path:
-    """Phase 7b: FFHQ-512 training from an image folder through the port's
-    command line, preempted by SIGTERM, resumed from its checkpoint, and
-    the checkpoint held against a fresh trainer's state; then the loader
-    alone and plain iterations with the image loader against phase 7's
-    synthetic ones (``synthetic``: its plain-iteration ms and busy share).
-    Returns the preempted run's directory (phase 18's transfer source)."""
-    from gan_control_torch.data import native_loader
-    from gan_control_torch.data.datasets import get_data_loader
-    from gan_control_torch.losses.registry import build_attr_losses
-    from gan_control_torch.trainers import generator_trainer as gt
-    from gan_control_torch.utils import checkpoint as ckpt_lib
-    from gan_control_torch.utils.flax_bridge import flax_to_state_dict, load_gan_state
+def in_thread(fn):
+    """``fn()`` started on a thread; returns a function that waits for it
+    and gives its result, or raises what it raised (a ``fail`` included)."""
+    import threading
 
+    box: dict = {}
+
+    def target():
+        try:
+            box["result"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised in the caller's thread
+            box["error"] = e
+
+    thread = threading.Thread(target=target, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    return join
+
+
+def image_folder_start(build_root: Path):
+    """Phase 7b's image folder and config, and its preempted command line
+    started, watched on a thread (which sends the SIGTERM), beside phase 9.
+    Returns (config, its path, the waiter of the preempted run)."""
     with Phase("folder write"):
         folder = write_image_folder(build_root / "ffhq_images1024x1024", FOLDER_IMAGES, FOLDER_PX)
         log(f"image folder: {FOLDER_IMAGES} RGB PNGs of {FOLDER_PX} px, "
@@ -1258,8 +1314,14 @@ def image_folder_phase(build_root: Path, synthetic: dict) -> Path:
     tc.update(save_images_interval=1000, save_nets_interval=1000, log_every=1)
     cfg_path = build_root / "folder_config.json"
     cfg_path.write_text(json.dumps(config))
+    return config, cfg_path, in_thread(lambda: folder_preempted(build_root, cfg_path))
 
-    with Phase("folder train, preempted"):
+
+def folder_preempted(build_root: Path, cfg_path: Path) -> tuple[Path, Path, int]:
+    """Phase 7b's first command line, SIGTERM once iteration PREEMPT_AFTER
+    is logged. Returns (its run directory, its checkpoint, the checkpoint's
+    iteration)."""
+    with Phase("folder train, preempted (beside phase 9)"):
         run = CliRun(cfg_path, 1000, build_root / "train_generator_preempted.log")
         save_dir = Path(run.wait_for(r"save dir: (\S+)", 300)[1])
         run.wait_for(rf"iter {PREEMPT_AFTER}: ", 600)
@@ -1282,7 +1344,26 @@ def image_folder_phase(build_root: Path, synthetic: dict) -> Path:
         if missing or len(want) != 8:
             fail(f"sample images missing: {missing} of {want}")
         log(f"folder train: sample grid and {len(want) - 1} group matrices written at iteration 0")
+    return save_dir, ckpt, at
 
+
+def image_folder_phase(build_root: Path, synthetic: dict, started) -> Path:
+    """Phase 7b: FFHQ-512 training from an image folder through the port's
+    command line, preempted by SIGTERM (started by :func:`image_folder_start`),
+    resumed from its checkpoint, and the checkpoint held against a fresh
+    trainer's state; then the loader alone and plain iterations with the
+    image loader against phase 7's synthetic ones (``synthetic``: its
+    plain-iteration ms and busy share). Returns the preempted run's
+    directory (phase 18's transfer source)."""
+    from gan_control_torch.data import native_loader
+    from gan_control_torch.data.datasets import get_data_loader
+    from gan_control_torch.losses.registry import build_attr_losses
+    from gan_control_torch.trainers import generator_trainer as gt
+    from gan_control_torch.utils import checkpoint as ckpt_lib
+    from gan_control_torch.utils.flax_bridge import flax_to_state_dict, load_gan_state
+
+    config, cfg_path, wait = started
+    save_dir, ckpt, at = wait()
     with Phase("folder train, resumed"):
         config["ckpt_config"] = {"enabled": True, "ckpt": str(ckpt)}
         cfg_path.write_text(json.dumps(config))
@@ -1779,9 +1860,9 @@ def train_card_vs_cpu() -> tuple[dict, list, dict]:
 # ---------------------------------------------------------------------------
 
 SWEEP_BATCH = 40
-SWEEP_ROWS = 1280
-CTRL_ITERS = 200
-CTRL_CHECK_INTERVAL = 100  # min_evaluate_interval and save_nets_interval of phase 11
+SWEEP_ROWS = 640  # cut from 1280 for phase 25 (PERF.md §4)
+CTRL_ITERS = 100  # cut from 200 for phase 25 (PERF.md §4)
+CTRL_CHECK_INTERVAL = 50  # min_evaluate_interval and save_nets_interval of phase 11
 ATTR_STEPS = 5
 REMAT_CHECK_BATCH = 16
 PARITY_CTRL_BATCH = 8
@@ -1800,20 +1881,34 @@ LATENT_RTOL = 1e-3
 REMAT_RTOL = 1e-5
 
 
-def run_cli(module: str, args: list[str], log_path: Path, timeout: float) -> list[str]:
-    """``python -m module args`` with its output in ``log_path``; its last
-    lines printed and the script failed when it does not exit 0. Returns its
-    lines."""
-    with open(log_path, "w") as f:
-        try:
-            proc = subprocess.run([sys.executable, "-m", module, *args], stdout=f,
-                                  stderr=subprocess.STDOUT, cwd=REPO, timeout=timeout)
-        except subprocess.TimeoutExpired:
-            fail(f"{module} did not exit within {timeout} s")
+def start_cli(module: str, args: list[str], log_path: Path) -> tuple:
+    """``python -m module args`` started, its output going to ``log_path``."""
+    f = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], stdout=f, stderr=subprocess.STDOUT, cwd=REPO)
+    return module, proc, f, log_path
+
+
+def finish_cli(started: tuple, timeout: float) -> list[str]:
+    """Waits for a :func:`start_cli` process; its last lines printed and the
+    script failed when it does not exit 0. Returns its lines."""
+    module, proc, f, log_path = started
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"{module} did not exit within {timeout} s")
+    finally:
+        f.close()
     lines = log_path.read_text().splitlines()
     if proc.returncode != 0:
         fail(f"{module} exited {proc.returncode}; last lines:\n" + "\n".join(lines[-30:]))
     return lines
+
+
+def run_cli(module: str, args: list[str], log_path: Path, timeout: float) -> list[str]:
+    """``python -m module args`` with its output in ``log_path``, to its end
+    (see :func:`finish_cli`)."""
+    return finish_cli(start_cli(module, args, log_path), timeout)
 
 
 def launches_of(fn, seen: Counter) -> dict:
@@ -1959,7 +2054,7 @@ def controller_config(model_dir: Path, table_path: Path, results_dir: Path) -> d
 
 def latent_rec_phase(root: Path, table_path: Path, seen: Counter, counts: dict) -> Path:
     """Phase 11: the age head trained by ``python -m
-    gan_control_torch.train_controller --iters 200`` on the sweep's table
+    gan_control_torch.train_controller --iters 100`` on the sweep's table
     (latent_rec); finite metrics, checkpoints and dual grids; launches per
     step in-process against the derived count and the step's time. Returns
     the head's directory."""
@@ -2423,11 +2518,12 @@ EVAL_ITERS = 3
 FID_CHUNKS = (16, 64)
 SWEEP_CHUNKS = 12  # timed chunks per chunk size
 FID_RECOMPUTE_RTOL = 1e-9
-# in-process separability and histogram samples (the command line keeps the config's 2000)
-EVAL_INPROCESS_SAMPLES = 500
+# in-process separability and histogram samples (cut from the config's 2000;
+# 250 from 500 for phase 25, PERF.md §4)
+EVAL_INPROCESS_SAMPLES = 250
 # the command line's separability and histograms (cut from the config's 2000
-# for phase 22, PERF.md §4)
-EVAL_CLI_SAMPLES = 500
+# for phase 22, and from 500 for phase 25, PERF.md §4)
+EVAL_CLI_SAMPLES = 250
 
 
 def eval_config(folder: Path, stats_path: Path, results_dir: Path) -> dict:
@@ -2497,17 +2593,9 @@ def fid_sweep(g_ema, inception, chunk: int) -> dict:
             "busy": busy / med}
 
 
-def evaluation_phase(build_root: Path) -> tuple[Counter, dict]:
-    """Phase 16. Returns the launches recorded on the evaluation path (one
-    in-process evaluation of each kind at iteration EVAL_AT, by kernel,
-    shape, dtype and static args) and their counts."""
+def evaluation_folder(build_root: Path) -> Path:
+    """Phase 16's image folder (also phase 18's MetFaces data)."""
     import shutil
-
-    from gan_control_torch.data.datasets import synthetic_data_loader
-    from gan_control_torch.evaluation import fid as fid_lib
-    from gan_control_torch.evaluation.inception import load_inception
-    from gan_control_torch.losses.registry import build_attr_losses
-    from gan_control_torch.trainers.generator_trainer import GeneratorTrainer
 
     root = build_root / "evaluation"
     if root.exists():
@@ -2515,7 +2603,22 @@ def evaluation_phase(build_root: Path) -> tuple[Counter, dict]:
     root.mkdir(parents=True)
     torch.cuda.empty_cache()
     with Phase("evaluation folder write"):
-        folder = write_image_folder(root / "images", EVAL_IMAGES, EVAL_PX, seed=5)
+        return write_image_folder(root / "images", EVAL_IMAGES, EVAL_PX, seed=5)
+
+
+def evaluation_phase(build_root: Path, folder: Path, before_in_process) -> tuple[Counter, dict]:
+    """Phase 16 on :func:`evaluation_folder`'s images; ``before_in_process()``
+    runs between its command lines and its in-process evaluations (which
+    time). Returns the launches recorded on the evaluation path (one
+    in-process evaluation of each kind at iteration EVAL_AT, by kernel,
+    shape, dtype and static args) and their counts."""
+    from gan_control_torch.data.datasets import synthetic_data_loader
+    from gan_control_torch.evaluation import fid as fid_lib
+    from gan_control_torch.evaluation.inception import load_inception
+    from gan_control_torch.losses.registry import build_attr_losses
+    from gan_control_torch.trainers.generator_trainer import GeneratorTrainer
+
+    root = build_root / "evaluation"
     stats_path = root / "real_stats.pkl"
     with Phase("evaluation calc_inception"):
         t0 = time.perf_counter()
@@ -2571,6 +2674,7 @@ def evaluation_phase(build_root: Path) -> tuple[Counter, dict]:
             f"{rec['orientation/yaw_std']:.6g}; files {len(files)} present; TensorBoard events "
             f"written: {bool(events)} ({sum(p.stat().st_size for p in events)} bytes)")
 
+    before_in_process()
     seen: Counter = Counter()
     counts: dict = {n: 0 for n in KERNELS}
     with Phase("evaluation in-process"):
@@ -3026,12 +3130,11 @@ def new_trainer_in_process(name: str, config: dict, seen: Counter, counts: dict)
     torch.cuda.empty_cache()
 
 
-def afhq_metfaces_phase(build_root: Path, ffhq_run: Path, metfaces_folder: Path) -> tuple[Counter, dict]:
-    """Phase 18. (a) AFHQ and (b) MetFaces through ``train_generator`` at
-    full width, run side by side; before them the MetFaces transfer checked
-    in-process; (c) one trainer per config in-process; (d) the new nets,
-    ADA and the ADA steps card against CPU. Returns (c)'s launches by
-    (kernel, shape, dtype, static args) and their counts."""
+def afhq_metfaces_start(build_root: Path, ffhq_run: Path, metfaces_folder: Path) -> dict:
+    """Phase 18 (a) and (b): AFHQ and MetFaces through ``train_generator``
+    at full width, started side by side (beside phase 16's command lines);
+    before them the MetFaces transfer checked in-process. Returns what
+    :func:`afhq_metfaces_wait` and :func:`afhq_metfaces_phase` read."""
     import shutil
 
     root = build_root / "afhq_metfaces"
@@ -3057,23 +3160,35 @@ def afhq_metfaces_phase(build_root: Path, ffhq_run: Path, metfaces_folder: Path)
     with Phase("metfaces transfer before the first step"):
         transfer_check(configs["metfaces"], ffhq_run)
 
-    with Phase("afhq and metfaces command lines"):
-        runs = {}
-        t0 = time.perf_counter()
-        for name, config in configs.items():
-            path = root / f"{name}_config.json"
-            path.write_text(json.dumps(config))
-            runs[name] = CliRun(path, NEW_ITERS, root / f"train_generator_{name}.log")
+    runs = {}
+    for name, config in configs.items():
+        path = root / f"{name}_config.json"
+        path.write_text(json.dumps(config))
+        runs[name] = CliRun(path, NEW_ITERS, root / f"train_generator_{name}.log")
+    return {"runs": runs, "configs": configs, "t0": time.perf_counter(), "ffhq_run": ffhq_run}
+
+
+def afhq_metfaces_wait(started: dict) -> None:
+    """Phase 18 (a) and (b) to their ends, and their checks."""
+    runs, configs = started["runs"], started["configs"]
+    with Phase("afhq and metfaces command lines (the wait beside phase 16's)"):
         for name, run in runs.items():
             rc = run.finish(900)
             if rc != 0:
                 fail(f"{name} train_generator exited {rc}; last lines:\n" + "".join(run.lines[-30:]))
-        log(f"afhq and metfaces train_generator: both runs side by side, {time.perf_counter() - t0:.1f} s; "
-            f"AFHQ from {AFHQ_IMAGES} 512-px PNGs in train/dog ({AFHQ_CATS} unreadable files in train/cat), "
-            f"MetFaces ('met-faces') from phase 16's {EVAL_IMAGES} PNGs with transfer from {ffhq_run.name}")
+        log(f"afhq and metfaces train_generator: both runs side by side (beside phase 16's command lines), "
+            f"{time.perf_counter() - started['t0']:.1f} s; AFHQ from {AFHQ_IMAGES} 512-px PNGs in train/dog "
+            f"({AFHQ_CATS} unreadable files in train/cat), MetFaces ('met-faces') from phase 16's {EVAL_IMAGES} "
+            f"PNGs with transfer from {started['ffhq_run'].name}")
         for name, run in runs.items():
             check_new_run(name, run, configs[name])
 
+
+def afhq_metfaces_phase(started: dict) -> tuple[Counter, dict]:
+    """Phase 18 after (a) and (b): (c) one trainer per config in-process;
+    (d) the new nets, ADA and the ADA steps card against CPU. Returns (c)'s
+    launches by (kernel, shape, dtype, static args) and their counts."""
+    configs = started["configs"]
     seen: Counter = Counter()
     counts: dict = {n: 0 for n in KERNELS}
     with Phase("afhq and metfaces in-process"):
@@ -3450,7 +3565,7 @@ def projection_phase(build_root: Path, model_dir: Path, seen: Counter, counts: d
 # data parallelism across processes (this slice)
 # ---------------------------------------------------------------------------
 
-DIST_ITERS = 3  # train_generator over two ranks; iteration 0 runs all four steps
+DIST_ITERS = 2  # train_generator over two ranks; iteration 0 runs all four steps (cut from 3 for phase 25)
 DIST_PLAIN_ITERS = (1, 2, 3)  # d_step + g_step only
 DIST_SWEEP_ROWS = 80  # two batches of SWEEP_BATCH (cut from four for phase 23, PERF.md §4)
 DIST_CTRL_ITERS = 20
@@ -3496,14 +3611,20 @@ def _rank_entry(rank: int, fn, world: int, local_world: int, port: int, *args) -
     fn(rank, *args)
 
 
-def spawn_ranks(fn, world: int, *args) -> None:
+def spawn_ranks(fn, world: int, *args, join: bool = True):
     """``fn(rank, *args)`` in ``world`` processes on this machine's one card,
     each with torchrun's environment (so the ranks share the card over
-    gloo; one rank runs NCCL). A rank that fails raises here."""
+    gloo; one rank runs NCCL). A rank that fails raises here, or, with
+    ``join`` false, in :func:`join_ranks` of the context returned."""
     import torch.multiprocessing as mp
 
-    mp.start_processes(_rank_entry, args=(fn, world, world, free_port(), *args), nprocs=world,
-                       start_method="spawn")
+    return mp.start_processes(_rank_entry, args=(fn, world, world, free_port(), *args), nprocs=world,
+                              start_method="spawn", join=join)
+
+
+def join_ranks(context) -> None:
+    while not context.join():
+        pass
 
 
 class SmallNet(torch.nn.Module):
@@ -3612,36 +3733,6 @@ def params_digest(*modules) -> str:
     return h.hexdigest()
 
 
-def record_collectives(records: list):
-    """Hooks on the port's two collective primitives: each call's kind,
-    payload bytes (this rank's tensor) and ms between device syncs. Returns
-    a function that removes them."""
-    from gan_control_torch.utils import collectives
-
-    originals = {"_all_reduce_": collectives._all_reduce_, "_all_gather": collectives._all_gather}
-
-    def timed(name, fn):
-        def run(t, *a, **kw):
-            if t.is_cuda:
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(t, *a, **kw)
-            if t.is_cuda:
-                torch.cuda.synchronize()
-            records.append((name, t.numel() * t.element_size(), (time.perf_counter() - t0) * 1e3))
-            return out
-        return run
-
-    for name, fn in originals.items():
-        setattr(collectives, name, timed(name, fn))
-
-    def remove():
-        for name, fn in originals.items():
-            setattr(collectives, name, fn)
-
-    return remove
-
-
 def ffhq_rank(rank: int, out_dir: str, config_path: str) -> None:
     """Phase 21b on one rank: ``train_generator --iters DIST_ITERS`` (its
     ``main``, as torchrun runs it) with each step's launches and collectives
@@ -3677,18 +3768,17 @@ def ffhq_rank(rank: int, out_dir: str, config_path: str) -> None:
 
     for k in gt.STEP_KINDS:
         setattr(gt, k, with_collectives(k, inner[k]))
-    remove = record_collectives(records)
     seen: Counter = Counter()
     remove_seen = install_launch_recorder(seen)
     torch.cuda.reset_peak_memory_stats()
     try:
-        kernels.reset_launch_counts()
-        train_generator.main(["--config_path", config_path, "--iters", str(DIST_ITERS)])
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
+        with collectives.recording(records, timed=True):
+            kernels.reset_launch_counts()
+            train_generator.main(["--config_path", config_path, "--iters", str(DIST_ITERS)])
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
     finally:
         remove_seen()
-        remove()
         for k in gt.STEP_KINDS:
             setattr(gt, k, inner[k])
         restore()
@@ -3719,13 +3809,13 @@ def ffhq_rank(rank: int, out_dir: str, config_path: str) -> None:
 
 
 def collectives_text(calls: list) -> str:
-    """One step's collectives: count, payload MB per rank and ms, by kind."""
+    """One step's collectives (``collectives.Call``s): count, payload MB per
+    rank and ms, by op."""
     parts = []
-    for name in ("_all_reduce_", "_all_gather"):
-        sel = [c for c in calls if c[0] == name]
-        if sel:
-            parts.append(f"{name.strip('_')} {len(sel)} calls {sum(c[1] for c in sel) / 1e6:.3f} MB "
-                         f"{sum(c[2] for c in sel):.2f} ms")
+    for op in dict.fromkeys(c.op for c in calls):
+        sel = [c for c in calls if c.op == op]
+        parts.append(f"{op} {len(sel)} calls {sum(c.nbytes for c in sel) / 1e6:.3f} MB "
+                     f"{sum(c.ms or 0.0 for c in sel):.2f} ms")
     return ", ".join(parts) or "none"
 
 
@@ -3798,15 +3888,23 @@ def net_batch_witness(extractor, images: torch.Tensor) -> dict:
     return out
 
 
-def parity_ranks(root: Path, worlds) -> None:
-    """Phase 21a: each step of ``parity_steps`` at each world size in
-    ``worlds`` (one rank over NCCL; more share the card over gloo)
-    against this process at the full batch."""
-    want = parity_steps(0, 1, torch.device("cuda"))
+def parity_start(root: Path, worlds) -> dict:
+    """Phase 21a's ranks at each world size in ``worlds`` (one rank over
+    NCCL; more share the card over gloo), all started at once."""
+    started = {}
     for world in worlds:
         out = root / f"parity{world}"
         out.mkdir()
-        spawn_ranks(parity_rank, world, str(out))
+        started[world] = (out, spawn_ranks(parity_rank, world, str(out), join=False))
+    return started
+
+
+def parity_ranks(started: dict) -> None:
+    """Phase 21a: each step of ``parity_steps`` on the ranks of
+    :func:`parity_start` against this process at the full batch."""
+    want = parity_steps(0, 1, torch.device("cuda"))
+    for world, (out, context) in started.items():
+        join_ranks(context)
         for r in range(world):
             got = torch.load(out / f"rank{r}.pt", weights_only=False)
             for kind in ("d_step", "d_reg_step", "g_step", "g_reg_step"):
@@ -3887,50 +3985,67 @@ def distributed_phase(build_root: Path) -> tuple[Counter, dict]:
         shutil.rmtree(root)
     root.mkdir(parents=True)
 
-    # (a) size-32 parity: two ranks over gloo on the one card, one over NCCL
-    with Phase("distributed parity"):
-        parity_ranks(root, (2, 1))
-
-    # (b) FFHQ-512 train_generator over two ranks sharing the card
-    with Phase("distributed train_generator"):
-        ranks = ffhq_ranks(root, 2)
-    seen = ranks[0]["seen"] + ranks[1]["seen"]
-    counts = {n: sum(res["counts"][n] for res in ranks) for n in KERNELS}
-    if counts != {n: sum(c for key, c in seen.items() if key[0] == n) for n in KERNELS}:
-        fail(f"distributed train_generator: launch hooks disagree with the counters {counts}")
-
-    # (c) the attribute sweep over two ranks against one process, on phase
-    # 10's directory with an f32 synthesis: in bf16 the synthesis at batch 20
-    # and 40 differs by bf16 rounding, and the random-init predictors (DEX's
-    # one-hot softmax) turn that into whole classes
+    # (a), (c) and (d) check results and time nothing: their processes run
+    # at once, while this process computes what they are held to; (b)
+    # times its ranks and runs alone after them
     model_dir = build_root / "phase2" / "controller" / "generator"
     f32_dir = root / "generator_f32"
     shutil.copytree(model_dir, f32_dir)
     args = json.loads((f32_dir / "args.json").read_text())
     args["model_config"]["mixed_precision"] = False
     (f32_dir / "args.json").write_text(json.dumps(args, indent=2))
-    with Phase("distributed sweep"):
-        tables = {}
+    table_path = build_root / "attributes.npz"
+    cfg = controller_config(model_dir, table_path, root / "controllers")
+    cfg["training_config"].update(min_evaluate_interval=DIST_CTRL_EVAL, save_nets_interval=10**6)
+    cfg_path = root / "age_controller_two_ranks.json"
+    cfg_path.write_text(json.dumps(cfg, indent=2))
+    with Phase("distributed parity, sweep and controller (their processes at once)"):
+        # (a) size-32 parity: two ranks over gloo on the one card, one over NCCL
+        parity = parity_start(root, (2, 1))
+        # (c) the attribute sweep over two ranks against one process, on
+        # phase 10's directory with an f32 synthesis: in bf16 the synthesis
+        # at batch 20 and 40 differs by bf16 rounding, and the random-init
+        # predictors (DEX's one-hot softmax) turn that into whole classes
+        sweeps = {}
         for label, launcher in (("one process", []),
                                 ("two ranks", ["torch.distributed.run", "--standalone", "--nproc_per_node=2"])):
             path = root / f"attributes_{label.replace(' ', '_')}.npz"
             cmd = ["--model_dir", str(f32_dir), "--batch_size", str(SWEEP_BATCH), "--number_of_samples",
                    str(DIST_SWEEP_ROWS), "--save_path", str(path)]
             if launcher:
-                lines = run_cli(launcher[0], [*launcher[1:], "-m", "gan_control_torch.make_attributes_df", *cmd],
-                                root / "make_attributes_df_two_ranks.log", 900)
+                run = start_cli(launcher[0], [*launcher[1:], "-m", "gan_control_torch.make_attributes_df", *cmd],
+                                root / "make_attributes_df_two_ranks.log")
             else:
-                lines = run_cli("gan_control_torch.make_attributes_df", cmd, root / "make_attributes_df.log", 900)
-            rate = re.search(r"swept \d+ rows in [\d.]+ s \(([\d.]+) rows/s", "\n".join(lines))
-            tables[label] = read_table(path)
-            log(f"distributed sweep: {label}: make_attributes_df --batch_size {SWEEP_BATCH} --number_of_samples "
-                f"{DIST_SWEEP_ROWS} (f32 synthesis): {rate[1] if rate else 'no'} rows/s")
-        got, one = tables["two ranks"], tables["one process"]
-        if list(got) != list(one) or any(got[c].shape != one[c].shape for c in one):
-            fail(f"distributed sweep: columns {list(got)} against {list(one)}")
+                run = start_cli("gan_control_torch.make_attributes_df", cmd, root / "make_attributes_df.log")
+            sweeps[label] = (path, run)
+        # (d) train_controller over two ranks against one process
+        ctrl_run = start_cli("torch.distributed.run",
+                             ["--standalone", "--nproc_per_node=2", "-m", "gan_control_torch.train_controller",
+                              "--config_path", str(cfg_path), "--iters", str(DIST_CTRL_ITERS)],
+                             root / "train_controller.log")
+
         # the whole sweep again in this process, at the ranks' batch: each
         # half through the G and the predictors alone, from the same draws
         replay, images, extractor = replay_sweep(f32_dir)
+        witness = net_batch_witness(extractor, images)
+        del extractor, images
+        tr = ControllerTrainer(config=cfg, init_dirs=False, device="cuda")
+        tr.train(DIST_CTRL_ITERS)
+        want = {k: v.detach().cpu() for k, v in tr.controller.state_dict().items()}
+
+        parity_ranks(parity)
+
+        tables = {}
+        for label, (path, run) in sweeps.items():
+            lines = finish_cli(run, 900)
+            rate = re.search(r"swept \d+ rows in [\d.]+ s \(([\d.]+) rows/s", "\n".join(lines))
+            tables[label] = read_table(path)
+            log(f"distributed sweep: {label}: make_attributes_df --batch_size {SWEEP_BATCH} --number_of_samples "
+                f"{DIST_SWEEP_ROWS} (f32 synthesis, beside the other processes of 21a, c and d): "
+                f"{rate[1] if rate else 'no'} rows/s")
+        got, one = tables["two ranks"], tables["one process"]
+        if list(got) != list(one) or any(got[c].shape != one[c].shape for c in one):
+            fail(f"distributed sweep: columns {list(got)} against {list(one)}")
 
         def err(col, a, b):  # the vote: rows that differ; else the error over the largest entry
             return int((a != b).sum()) if col == "expression_q" else max_rel(a, b)
@@ -3944,8 +4059,6 @@ def distributed_phase(build_root: Path) -> tuple[Counter, dict]:
                 else DIST_PREDICTOR_RTOL
             if r > tol or (col not in DIST_BATCH_SENSITIVE and a > tol):
                 fail(f"distributed sweep: {col} errors {a:.3g} / {r:.3g} against {tol}")
-        witness = net_batch_witness(extractor, images)
-        del extractor, images
         for col, readings in witness.items():
             log(f"distributed sweep: {col} on one batch's images, {SWEEP_BATCH // 2} + {SWEEP_BATCH // 2} rows "
                 f"against {SWEEP_BATCH} / {SWEEP_BATCH} rows against float64's: " + ", ".join(
@@ -3954,17 +4067,7 @@ def distributed_phase(build_root: Path) -> tuple[Counter, dict]:
             if readings["float64"][0] > DIST_F64_BATCH_RTOL:
                 fail(f"distributed sweep: {col} moves with the batch size in float64: a net couples rows")
 
-    # (d) train_controller over two ranks against one process
-    table_path = build_root / "attributes.npz"
-    with Phase("distributed controller"):
-        cfg = controller_config(model_dir, table_path, root / "controllers")
-        cfg["training_config"].update(min_evaluate_interval=DIST_CTRL_EVAL, save_nets_interval=10**6)
-        cfg_path = root / "age_controller_two_ranks.json"
-        cfg_path.write_text(json.dumps(cfg, indent=2))
-        lines = run_cli("torch.distributed.run",
-                        ["--standalone", "--nproc_per_node=2", "-m", "gan_control_torch.train_controller",
-                         "--config_path", str(cfg_path), "--iters", str(DIST_CTRL_ITERS)],
-                        root / "train_controller.log", 900)
+        lines = finish_cli(ctrl_run, 900)
         heads = sorted((root / "controllers").glob("age_*"))
         if len(heads) != 1:
             fail(f"distributed controller: head directories {heads}")
@@ -3972,9 +4075,6 @@ def distributed_phase(build_root: Path) -> tuple[Counter, dict]:
         if ckpts != [f"{DIST_CTRL_ITERS:06d}.ckpt"]:
             fail(f"distributed controller: checkpoints {ckpts}")
         got = flax_to_state_dict(ckpt_lib.load_state_dict(heads[0] / "checkpoint" / ckpts[0])["controller"])
-        tr = ControllerTrainer(config=cfg, init_dirs=False, device="cuda")
-        tr.train(DIST_CTRL_ITERS)
-        want = {k: v.detach().cpu() for k, v in tr.controller.state_dict().items()}
         worst, worst_name = worst_grad_err(want, got)
         logged = [m for m in (re.search(r"controller iter (\d+): (\{.*\})", ln) for ln in lines) if m]
         by_iter = {}
@@ -3989,6 +4089,15 @@ def distributed_phase(build_root: Path) -> tuple[Counter, dict]:
         if sorted(by_iter) != [h["iter"] for h in tr.metrics_history] or worst > DIST_CTRL_RTOL \
                 or metric_err > DIST_CTRL_RTOL:
             fail("distributed controller: two ranks and one process disagree")
+        del tr
+
+    # (b) FFHQ-512 train_generator over two ranks sharing the card
+    with Phase("distributed train_generator"):
+        ranks = ffhq_ranks(root, 2)
+    seen = ranks[0]["seen"] + ranks[1]["seen"]
+    counts = {n: sum(res["counts"][n] for res in ranks) for n in KERNELS}
+    if counts != {n: sum(c for key, c in seen.items() if key[0] == n) for n in KERNELS}:
+        fail(f"distributed train_generator: launch hooks disagree with the counters {counts}")
     return seen, counts
 
 
@@ -3999,9 +4108,12 @@ def distributed_phase(build_root: Path) -> tuple[Counter, dict]:
 BLOB_ITERS = 600  # convergence's default
 BLOB_EVAL_EVERY = 100
 # control_fidelity: phase-1 iterations, each head's iterations, table rows
-# (cut from the harness's 1000 / 2000 / 4096, whose committed card run is
-# gan_control_torch/tools/results/control_fidelity.jsonl)
-FIDELITY = (400, 600, 2048)
+# (the heads and rows cut from the harness's 2000 / 4096, whose committed
+# card run is gan_control_torch/tools/results/control_fidelity.jsonl).
+# Phase 1 keeps the harness's 1000: at 400 the colour spans fell to
+# 0.05-0.10, one run under the verdict's 0.05, and the heads' iterations
+# (600 to 2000) did not move them (PERF.md §6)
+FIDELITY = (1000, 600, 2048)
 MARGE_REPS = 5
 MESH = ("cuda:0", "cuda:0")  # two replicas sharing the one card
 MESH_BUCKETS = (2, 8, 64)
@@ -4074,22 +4186,25 @@ def _tuples(x):
     return tuple(_tuples(v) for v in x) if isinstance(x, list) else x
 
 
-def start_blob_children(build_root: Path) -> dict:
-    """Phase 22a-b's two processes (:func:`blob_child`), started side by
-    side: each harness is host-bound and the card idles ~90 % of a plain
-    iteration. Returns {which: process}."""
+def start_blob_children(build_root: Path, whiches: tuple[str, ...]) -> dict:
+    """Phase 22a-b's processes (:func:`blob_child`), each in a directory of
+    its own under ``build/.../blob``: each harness is host-bound and the
+    card idles ~90 % of a plain iteration, so they run beside other phases.
+    Returns {which: process}."""
+    import atexit
     import shutil
 
-    root = build_root / "blob"
-    if root.exists():
-        shutil.rmtree(root)
-    root.mkdir(parents=True)
     procs = {}
-    for which in ("convergence", "fidelity"):
+    for which in whiches:
+        root = build_root / "blob" / which
+        if root.exists():
+            shutil.rmtree(root)
+        root.mkdir(parents=True)
         with open(root / f"{which}.log", "w") as f:
             procs[which] = subprocess.Popen(
                 [sys.executable, "-c", f"import chip_smoke; chip_smoke.blob_child({which!r}, "
                  f"{str(root / (which + '.json'))!r})"], stdout=f, stderr=subprocess.STDOUT, cwd=REPO)
+        atexit.register(procs[which].kill)
     return procs
 
 
@@ -4098,12 +4213,12 @@ def blob_phase(build_root: Path, procs: dict, seen: Counter, counts: dict) -> No
     they wrote; then times plain iterations of a fresh blob trainer."""
     from gan_control_torch.tools import control_fidelity, convergence
 
-    root = build_root / "blob"
     res = {}
     with Phase("blob-world harnesses, the wait for their processes"):
         try:
             for which, proc in procs.items():
                 rc = proc.wait(timeout=1100)
+                root = build_root / "blob" / which
                 if rc != 0:
                     tail = (root / f"{which}.log").read_text().splitlines()[-30:]
                     fail(f"the blob-world {which} process exited {rc}; last lines:\n" + "\n".join(tail))
@@ -4732,6 +4847,9 @@ INT8_NET_FACTOR = 1.5
 INT8_CARD_FACTOR = 2.0
 INT8_NET_ROWS = 4
 INT8_CHILD_TIMEOUT = 600.0  # seconds 24d waits for its CPU side (it takes ~2 min beside phases 10-22)
+# each of the two CPU children (24d's, 25b's), which run at once beside
+# phases 7b-16: two cores of the card machine's eight stay with the script
+CPU_CHILD_THREADS = 3
 
 
 def dequant_kernel_check(battery) -> tuple[dict, float, str, float]:
@@ -4765,7 +4883,7 @@ def dequant_kernel_check(battery) -> tuple[dict, float, str, float]:
     return t, t_b, by, err
 
 
-def int8_train_phase(build_root: Path) -> tuple[Counter, dict, tuple]:
+def int8_train_phase(build_root: Path) -> tuple[Counter, dict, tuple, object]:
     """24a-b: a ``GeneratorTrainer`` on configs/ffhq.json with
     ``predictor_dtype: "int8"`` (FFHQ-512, batch 16, the six-net battery at
     random init, as ``train_generator`` builds it); the kernel check on its
@@ -4775,7 +4893,7 @@ def int8_train_phase(build_root: Path) -> tuple[Counter, dict, tuple]:
     every quantised tensor of the modules on the meta device, each step's
     bf16 buffer freed with its step, the first one bitwise equal to the
     plain version. Returns (recorded launches, counts, the kernel's 24a
-    numbers)."""
+    numbers, the trainer, which 25a recasts)."""
     import weakref
 
     from gan_control_torch.losses.int8_storage import Int8Battery
@@ -4875,10 +4993,9 @@ def int8_train_phase(build_root: Path) -> tuple[Counter, dict, tuple]:
             log(f"profile_bench train on this trainer: {json.dumps(out)}")
             if not (out["ms"] > 0 and math.isfinite(out["ms"])):
                 fail(f"profile_bench train: {out}")
-    trainer.close()
-    del trainer, battery, q0, s0, st
+    del battery, q0, s0, st
     torch.cuda.empty_cache()
-    return seen, counts, kernel
+    return seen, counts, kernel, trainer
 
 
 def battery_share_phase() -> None:
@@ -4914,8 +5031,8 @@ def _digest(t: torch.Tensor) -> str:
 
 
 def int8_cpu_child(inputs: str, out: str) -> None:
-    """24d's CPU side, in a fresh interpreter on the CPU (four threads)
-    from the end of phase 9 on: from phase 9's size-32 model, images and
+    """24d's CPU side, in a fresh interpreter on the CPU (CPU_CHILD_THREADS
+    threads) from the end of phase 9 on: from phase 9's size-32 model, images and
     calibrated battery (``inputs``), the int8 store's digests and its
     plain dequantisation's; per net (INT8_NET_ROWS images) the float64
     witness's image gradient and the hair net's mask logit
@@ -4930,7 +5047,7 @@ def int8_cpu_child(inputs: str, out: str) -> None:
     from gan_control_torch.ops import kernels
     from gan_control_torch.tools import predictor_precision_probe as probe
 
-    torch.set_num_threads(4)
+    torch.set_num_threads(CPU_CHILD_THREADS)
     t0 = time.perf_counter()
     saved = torch.load(inputs, weights_only=False)
     setup = probe.size32_setup(json.loads(probe.CONFIG.read_text()))
@@ -4964,9 +5081,30 @@ def int8_cpu_child(inputs: str, out: str) -> None:
     torch.save(res, out)
 
 
+def wait_for_child(child, out: Path, log_path: Path, label: str) -> None:
+    """Until a CPU child has exited; fails unless it exited 0 having
+    written ``out``."""
+    try:
+        rc = child.wait(timeout=INT8_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        rc = None
+    if rc != 0 or not out.exists():
+        fail(f"{label}: the CPU child ended with {rc}:\n{log_path.read_text()[-3000:]}")
+
+
+def battery_copies(cpu_preds: dict, device) -> dict:
+    """A copy of phase 9's battery on ``device``, its recon sharing kept
+    and its hair-mask hook dropped."""
+    nets = {id(m): copy.deepcopy(m).to(device) for m in cpu_preds.values()}
+    for m in nets.values():
+        m.__dict__.pop("mask_logit", None)  # phase 9's hair-mask hook
+    return {n: nets[id(m)] for n, m in cpu_preds.items()}
+
+
 def int8_cpu_start(build_root: Path, setup: dict, specs, cpu_preds: dict) -> dict:
     """Phase 9's inputs to 24d written to disk and :func:`int8_cpu_child`
-    started on them; returns what :func:`int8_card_vs_cpu` reads."""
+    and :func:`float16_cpu_child` started on them; returns what
+    :func:`int8_card_vs_cpu` and :func:`float16_card_vs_cpu` read."""
     import atexit
 
     from gan_control_torch.losses.registry import distinct_predictors
@@ -4975,16 +5113,46 @@ def int8_cpu_start(build_root: Path, setup: dict, specs, cpu_preds: dict) -> dic
     root.mkdir(parents=True, exist_ok=True)
     inputs, out = root / "inputs.pt", root / "cpu.pt"
     out.unlink(missing_ok=True)
+    out16 = root / "cpu_float16.pt"
+    out16.unlink(missing_ok=True)
     torch.save({"g0": setup["g0"].state_dict(), "d0": setup["d0"].state_dict(), "z": setup["z"],
                 "noise": setup["noise"], "img": setup["img"],
                 "nets": {n: m.state_dict() for n, m in distinct_predictors(cpu_preds).items()}}, inputs)
-    with open(root / "cpu_child.log", "w") as f:
-        child = subprocess.Popen(
-            [sys.executable, "-c", f"import chip_smoke; chip_smoke.int8_cpu_child({str(inputs)!r}, {str(out)!r})"],
-            stdout=f, stderr=subprocess.STDOUT, cwd=REPO)
-    atexit.register(child.kill)
-    return {"child": child, "out": out, "log": root / "cpu_child.log", "setup": setup, "specs": specs,
-            "cpu_preds": cpu_preds}
+    children = {}
+    for fn, dest, log_name in (("int8_cpu_child", out, "cpu_child.log"),
+                               ("float16_cpu_child", out16, "float16_child.log")):
+        with open(root / log_name, "w") as f:
+            children[fn] = subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.{fn}({str(inputs)!r}, {str(dest)!r})"],
+                stdout=f, stderr=subprocess.STDOUT, cwd=REPO)
+        atexit.register(children[fn].kill)
+    return {"child": children["int8_cpu_child"], "out": out, "log": root / "cpu_child.log",
+            "child16": children["float16_cpu_child"], "out16": out16, "log16": root / "float16_child.log",
+            "setup": setup, "specs": specs, "cpu_preds": cpu_preds}
+
+
+def resize_backward_check(img: torch.Tensor, dtype: torch.dtype, label: str) -> None:
+    """The predictors' ``dtype`` resize backward (32 -> 256 px) on the card
+    within one ``dtype`` rounding of the CPU's f32 gradient; F.interpolate's
+    own (CUDA sums it by ``dtype`` atomics) logged beside it."""
+    from gan_control_torch.losses.predictors.common import resize_bilinear
+
+    tol = torch.finfo(dtype).eps / 2  # one rounding: 2**-8 in bf16, 2**-11 in float16
+    x = img.permute(0, 3, 1, 2).to(dtype)
+    g = torch.randn((x.shape[0], 3, 256, 256), generator=torch.Generator().manual_seed(7)).to(dtype)
+    x32 = x.float().requires_grad_(True)
+    (want,) = torch.autograd.grad(F.interpolate(x32, size=(256, 256), mode="bilinear", align_corners=True),
+                                  x32, g.float())
+    errs = {}
+    for name, fn in (("port", resize_bilinear), ("F.interpolate", lambda t, hw, ac: F.interpolate(
+            t, size=hw, mode="bilinear", align_corners=ac))):
+        xc = x.cuda().requires_grad_(True)
+        (got,) = torch.autograd.grad(fn(xc, (256, 256), True), xc, g.cuda())
+        errs[name] = float((got.float().cpu() - want).abs().max() / want.abs().max())
+    log(f"{label}: {str(dtype)[6:]} resize 32 -> 256 px backward on the card against the CPU's f32, largest "
+        f"error over max: the port's {errs['port']:.3g} (tol {tol:.3g}), F.interpolate's {errs['F.interpolate']:.3g}")
+    if errs["port"] > tol:
+        fail(f"{label}: the predictors' {str(dtype)[6:]} resize backward is not the f32 sum rounded once")
 
 
 def int8_card_vs_cpu(started: dict) -> None:
@@ -5020,26 +5188,16 @@ def int8_card_vs_cpu(started: dict) -> None:
     distance from f32 (``predictor_precision_probe``, section 3). The
     card's f32 runs with TF32 off, as phase 9's."""
     from gan_control_torch.losses.int8_storage import Int8Battery
-    from gan_control_torch.losses.predictors.common import resize_bilinear
     from gan_control_torch.losses.registry import distinct_predictors
     from gan_control_torch.tools import predictor_precision_probe as probe
 
     setup, specs, cpu_preds = started["setup"], started["specs"], started["cpu_preds"]
-    try:
-        rc = started["child"].wait(timeout=INT8_CHILD_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        rc = None
-    if rc != 0 or not started["out"].exists():
-        tail = started["log"].read_text()[-3000:]
-        fail(f"int8 card vs cpu: the CPU child ended with {rc}:\n{tail}")
+    wait_for_child(started["child"], started["out"], started["log"], "int8 card vs cpu")
     cpu_res = torch.load(started["out"], weights_only=False)
     log(f"int8 card vs cpu (24d): the CPU side took {cpu_res['seconds']:.1f} s in its own process")
 
     def copies(device):
-        nets = {id(m): copy.deepcopy(m).to(device) for m in cpu_preds.values()}
-        for m in nets.values():
-            m.__dict__.pop("mask_logit", None)  # phase 9's hair-mask hook
-        return {n: nets[id(m)] for n, m in cpu_preds.items()}
+        return battery_copies(cpu_preds, device)
 
     card8 = Int8Battery(copies("cuda"), "cuda")
     flat = card8.dequantize()
@@ -5049,22 +5207,7 @@ def int8_card_vs_cpu(started: dict) -> None:
     del flat
 
     img = setup["img"]
-    x = img.permute(0, 3, 1, 2).to(torch.bfloat16)
-    g = torch.randn((x.shape[0], 3, 256, 256), generator=torch.Generator().manual_seed(7)).to(torch.bfloat16)
-    x32 = x.float().requires_grad_(True)
-    (want,) = torch.autograd.grad(F.interpolate(x32, size=(256, 256), mode="bilinear", align_corners=True),
-                                  x32, g.float())
-    errs = {}
-    for label, fn in (("port", resize_bilinear), ("F.interpolate", lambda t, hw, ac: F.interpolate(
-            t, size=hw, mode="bilinear", align_corners=ac))):
-        xc = x.cuda().requires_grad_(True)
-        (got,) = torch.autograd.grad(fn(xc, (256, 256), True), xc, g.cuda())
-        errs[label] = float((got.float().cpu() - want).abs().max() / want.abs().max())
-    log(f"int8 card vs cpu (24d): bf16 resize 32 -> 256 px backward on the card against the CPU's f32, largest "
-        f"error over max: the port's {errs['port']:.3g} (tol {2.0 ** -8:.3g}), F.interpolate's "
-        f"{errs['F.interpolate']:.3g}")
-    if errs["port"] > 2.0 ** -8:
-        fail("int8 card vs cpu: the predictors' bf16 resize backward is not the f32 sum rounded once")
+    resize_backward_check(img, torch.bfloat16, "int8 card vs cpu (24d)")
 
     views = card8.nets(torch.bfloat16)
     card16 = copies("cuda")
@@ -5135,6 +5278,382 @@ def developer_probes_phase() -> None:
         if not any(r.get("backend") == "python_pil" and r["imgs_per_s"] > 0 for r in rows):
             fail(f"loader_bench: {rows}")
 
+# ---------------------------------------------------------------------------
+# phase 25: float16 battery storage, collective_scaling, the notebook
+# ---------------------------------------------------------------------------
+
+F16_ITERS = 2  # train(2) on 24b's trainer, its battery recast to float16
+F16_ROUNDS = 3  # timed g_steps per leg (float16, bf16, adversarial only)
+F16_CALIBRATION_ROWS = 4
+# 25b: the card's distance from the float64 witness (per net) or from the
+# CPU's f32 step on the float16 weights (the g_step) as a multiple of the
+# CPU's, as 24d bounds bf16 (INT8_NET_FACTOR, INT8_CARD_FACTOR): the
+# random battery is chaotic in any low precision (ROADMAP Queue 3 item 2);
+# float16 holds 3 more mantissa bits than bf16, so the factors are bf16's
+F16_NET_FACTOR = 1.5
+F16_CARD_FACTOR = 2.0
+F16_PROJ_SEED = 400
+# 25b's size-32 step: a batch of four on two latent groups (a float16
+# convolution on the card machine's CPU is far slower than an f32 one: phase
+# 9's batch of 16 on seven groups outlasted the script)
+F16_BATCH = 4
+F16_NET_ROWS = 2  # each net alone on two of its images
+F16_GROUPS = {"embedding_loss": "id", "orientation_loss": "id", "age_loss": "id", "expression_loss": "other",
+              "hair_loss": "other", "recon_gamma_loss": "other"}
+# the JAX tool's FFHQ-512 parameter bytes (tools/ici_scaling.py
+# flagship_param_bytes; tests/test_torch_collective_scaling.py holds the
+# port's to them on the CPU)
+JAX_FLAGSHIP_PARAM_BYTES = {"g": 124812188, "d": 115931396}
+
+
+def float16_setup(specs) -> tuple[dict, tuple]:
+    """25b's size-32 model (``predictor_precision_probe.size32_setup``'s,
+    seeds as there) at batch F16_BATCH on two latent groups, and ``specs``
+    (phase 9's six losses) on those groups: the float16 ``g_step`` of
+    tests/test_torch_float16_step.py. Both sides build it alike."""
+    from gan_control_torch.tools import predictor_precision_probe as probe
+
+    config = json.loads(probe.CONFIG.read_text())
+    half = F16_BATCH // 2
+    config["training_config"].update(batch=F16_BATCH, mini_batch=F16_BATCH, sub_groups_dict={
+        "id": {"place_in_latent": [0, 256], "place_in_mini_batch": [0, half], "count_in_mini_bach": [2, 2]},
+        "other": {"place_in_latent": [256, 512], "place_in_mini_batch": [half, F16_BATCH],
+                  "count_in_mini_bach": [2, 2]}})
+    return probe.size32_setup(config), tuple(dataclasses.replace(al, group=F16_GROUPS[al.name]) for al in specs)
+
+
+def float16_cpu_child(inputs: str, out: str) -> None:
+    """25b's CPU side, in a fresh interpreter on the CPU (CPU_CHILD_THREADS
+    threads) from the end of phase 9 on, beside 24d's: phase 9's calibrated battery
+    (``inputs``) in f32 and cast to float16; on :func:`float16_setup`'s
+    model, per net (INT8_NET_ROWS of its images) a float64 witness on the
+    float16 weights (its image gradient of a seeded projection and the
+    hair net's mask logit) and the CPU's float16 gradients and f32 ones
+    on the float16 weights; the witness's hair logit on all its images;
+    its ``g_step``'s G gradients with the battery in f32 on the float16
+    weights and in float16, the hair net on the witness's mask. Writes
+    them, with each part's seconds, to ``out``."""
+    from gan_control_torch.losses.registry import build_attr_losses, cast_predictor_params, distinct_predictors
+    from gan_control_torch.tools import predictor_precision_probe as probe
+
+    torch.set_num_threads(CPU_CHILD_THREADS)
+    t0 = time.perf_counter()
+    times = {}
+    saved = torch.load(inputs, weights_only=False)
+    setup = probe.size32_setup(json.loads(probe.CONFIG.read_text()))
+    specs, f32 = build_attr_losses({**setup["tc"], "predictor_precision": "highest"}, device="cpu", seed=3)
+    for name, m in distinct_predictors(f32).items():
+        m.load_state_dict(saved["nets"][name])
+    setup, specs = float16_setup(specs)
+    f16 = cast_predictor_params(f32, "float16")
+    # f32 on the float16 weights (a statistic past 65504 stays inf): the
+    # same function as the float16 battery, as 24d's f32 reference runs on
+    # the dequantised weights
+    f32 = cast_predictor_params(battery_copies(f16, "cpu"), "float32")
+    rows = setup["img"][:F16_NET_ROWS]
+    res: dict = {"nets": {}}
+    for i, name in enumerate(distinct_predictors(f16)):
+        t = time.perf_counter()
+        want, logit = probe.witness_of(f16[name], rows, F16_PROJ_SEED + i)
+        res["nets"][name] = {"witness": want, "logit": logit, "cpu": probe.net_grads(
+            {"f16": f16[name], "f32": f32[name]}, rows, F16_PROJ_SEED + i, logit)}
+        times[name] = time.perf_counter() - t
+    witness = copy.deepcopy(f16["hair_loss"]).double()
+    with torch.no_grad():
+        res["logit"] = logit = witness.mask_logit(witness.resize_input(setup["img"].double()))
+    for battery in (f32, f16):  # one hair mask everywhere: the witness's
+        battery["hair_loss"].mask_logit = lambda t: logit.to(t.device, t.dtype)
+    for key, dtype, battery in (("ref", "float32", f32), ("cpu", "float16", f16)):
+        t = time.perf_counter()
+        res[key] = probe.int8_g_step_grads(setup, specs, dtype, battery, "cpu")
+        times[f"g_step {key}"] = time.perf_counter() - t
+    res["times"], res["seconds"] = times, time.perf_counter() - t0
+    torch.save(res, out)
+
+
+@contextlib.contextmanager
+def fp16_reduction(allowed: bool):
+    """cuBLAS's reduced-precision reduction for float16 GEMMs, restored on exit."""
+    saved = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = allowed
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = saved
+
+
+def float16_card_vs_cpu(started: dict) -> None:
+    """25b: float16 storage on the card against the CPU, on
+    :func:`float16_setup`'s size-32 model and phase 9's calibrated battery
+    (the CPU's side from :func:`float16_cpu_child`), by 24d's method:
+
+      - the predictors' float16 resize backward on the card (32 -> 256 px)
+        within one float16 rounding of the CPU's f32 gradient
+        (F.interpolate's own float16 backward logged beside it);
+      - each net alone (F16_NET_ROWS images, the hair net on the witness's
+        mask): the f32 image gradient on the float16 weights card against
+        CPU to PREDICTOR_GRAD_REL_L2, and the float16 one no farther from
+        the float64 witness than F16_NET_FACTOR times the CPU's, plus
+        BATTERY_PARITY_RTOL;
+      - the ``g_step`` in float16 storage: the card's G gradients no
+        farther from the CPU's f32 step on the float16 weights than
+        F16_CARD_FACTOR times the CPU's float16 step, plus
+        BATTERY_PARITY_RTOL; every gradient finite. 24d also takes the
+        CPU's step with one rounding moved, because at its seed the CPU's
+        int8 step lies unusually near f32; in float16 the two lay within
+        0.2 % of each other on the card's machine (0.0229 and 0.02286), and
+        that step took 80 s of its CPU, so 25b skips it.
+
+    Each float16 reading is taken with cuBLAS's reduced-precision reduction
+    on (PyTorch's default, which the port keeps) and logged again with it
+    off. The card's f32 runs with TF32 off, as phase 9's."""
+    from gan_control_torch.losses.registry import cast_predictor_params, distinct_predictors
+    from gan_control_torch.tools import predictor_precision_probe as probe
+
+    cpu_preds = started["cpu_preds"]
+    setup, specs = float16_setup(started["specs"])
+    wait_for_child(started["child16"], started["out16"], started["log16"], "float16 card vs cpu")
+    cpu_res = torch.load(started["out16"], weights_only=False)
+    log(f"float16 card vs cpu (25b): the CPU side took {cpu_res['seconds']:.1f} s in its own process ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in cpu_res["times"].items()) + ")")
+
+    img = setup["img"]
+    resize_backward_check(img, torch.float16, "float16 card vs cpu (25b)")
+
+    card16 = cast_predictor_params(battery_copies(cpu_preds, "cuda"), "float16")
+    card32 = cast_predictor_params(battery_copies(card16, "cuda"), "float32")
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i, name in enumerate(distinct_predictors(card16)):
+            net, rows, seed = cpu_res["nets"][name], img[:F16_NET_ROWS], F16_PROJ_SEED + i
+            with fp16_reduction(True):
+                card = probe.net_grads({"f16": card16[name], "f32": card32[name]}, rows, seed, net["logit"])
+            with fp16_reduction(False):
+                off = probe.net_grads({"f16": card16[name]}, rows, seed, net["logit"])["f16"]
+            d = probe.int8_net_distances(net["witness"], net["cpu"], card)
+            log(f"float16 card vs cpu (25b) {name}: image gradient of a projection, {F16_NET_ROWS} rows, "
+                f"relative L2 from float64 on the float16 weights: float16 cpu {d['cpu_f16']:.4g}, card "
+                f"{d['card_f16']:.4g} (tol {F16_NET_FACTOR} x cpu + {BATTERY_PARITY_RTOL}), card with cuBLAS's "
+                f"float16 reduced-precision reduction off {probe._rel(off, net['witness']):.4g} (from the card's "
+                f"with it on {probe._rel(off, card['f16']):.3g}); f32 card from cpu {d['card_f32_vs_cpu_f32']:.3g} "
+                f"(tol {PREDICTOR_GRAD_REL_L2})")
+            if d["card_f32_vs_cpu_f32"] > PREDICTOR_GRAD_REL_L2 or \
+                    d["card_f16"] > F16_NET_FACTOR * d["cpu_f16"] + BATTERY_PARITY_RTOL:
+                fail(f"float16 card vs cpu: {name}'s image gradient on the card departs from the CPU's")
+        logit = cpu_res["logit"]
+        card16["hair_loss"].mask_logit = lambda t: logit.to(t.device, t.dtype)
+        with fp16_reduction(True):
+            card = probe.int8_g_step_grads(setup, specs, "float16", card16, "cuda")
+        with fp16_reduction(False):
+            card_off = probe.int8_g_step_grads(setup, specs, "float16", card16, "cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    ref = cpu_res["ref"]
+    cpu_err, card_err = probe.g_rel_l2(cpu_res["cpu"], ref), probe.g_rel_l2(card, ref)
+    log(f"float16 card vs cpu (25b): size-32 g_step in float16 storage, G gradients relative L2 from the CPU's "
+        f"f32 step on the float16 weights: CPU {cpu_err:.4g}, card {card_err:.4g} (tol {F16_CARD_FACTOR} x "
+        f"the CPU's + {BATTERY_PARITY_RTOL}); card from CPU "
+        f"{probe.g_rel_l2(card, cpu_res['cpu']):.4g}; card with the reduced-precision reduction off "
+        f"{probe.g_rel_l2(card_off, ref):.4g} (from the card's with it on {probe.g_rel_l2(card_off, card):.3g})")
+    if not all(bool(torch.isfinite(t).all()) for t in (*card.values(), *cpu_res["cpu"].values())) or \
+            card_err > F16_CARD_FACTOR * cpu_err + BATTERY_PARITY_RTOL:
+        fail(f"float16 card vs cpu: the card's gradients are {card_err:.3g} from the f32 step, the CPU's {cpu_err:.3g}")
+    del card16, card32
+    torch.cuda.empty_cache()
+
+
+def float16_train_phase(trainer) -> tuple[Counter, dict]:
+    """25a: 24b's FFHQ-512 trainer (batch 16) with its battery recast: the
+    config's six nets drawn again from the trainer's seed, their
+    batch-norm statistics set from the trainer's G images (at random init
+    the R-Net's activations pass float16's 65504 and its coefficients turn
+    NaN, in the JAX package too; ROADMAP Queue 3) and stored in float16.
+    ``train(F16_ITERS)`` with the counters set to 0 just before and read
+    just after: each step kind against ``expected_step_counts`` (the
+    battery launches none of the port's kernels), finite losses and G
+    gradients, the battery unchanged and in float16; then ``g_step`` timed
+    beside the same weights in bf16 and the adversarial loss alone (the
+    legs in turn, ``battery_share``'s way), with each leg's resident battery
+    and peak. Returns the recorded launches and their counts."""
+    from gan_control_torch.losses.registry import build_attr_losses, calibrate_battery, cast_predictor_params
+    from gan_control_torch.losses.registry import distinct_predictors
+    from gan_control_torch.ops import kernels
+    from gan_control_torch.tools import battery_share as bs
+    from gan_control_torch.tools import train_mfu as tm
+    from gan_control_torch.trainers import generator_trainer as gt
+    from gan_control_torch.training import train_step as ts
+
+    st, cfg, spec = trainer.state, trainer.step_cfg, trainer.spec
+    seen: Counter = Counter()
+    with phase7_tf32():
+        with Phase("float16 battery (25a)"):
+            specs, f32 = build_attr_losses(trainer.tc, device="cuda")
+            z = torch.from_numpy(np.random.default_rng(9).standard_normal((F16_CALIBRATION_ROWS, cfg.style_dim))
+                                 .astype(np.float32)).cuda()
+            with torch.no_grad():
+                images, _ = ts._gen_images(st, cfg, spec, (z,), None, None, arrange=False)
+            calibrate_battery(f32, images.float())
+            bf16 = cast_predictor_params(battery_copies(f32, "cuda"), "bfloat16")
+            f16 = cast_predictor_params(f32, "float16")
+            before = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in distinct_predictors(f16).items()}
+            overflowed = [f"{n}.{k}" for n, sd in before.items() for k, v in sd.items()
+                          if v.is_floating_point() and not torch.isfinite(v).all()]
+            trainer.predictors, trainer.attr_losses = f16, tuple(specs)
+            trainer.step_cfg = f16_cfg = dataclasses.replace(cfg, predictor_dtype="float16")
+            log(f"float16 storage (25a): {sum(len(sd) for sd in before.values())} tensors of {len(before)} nets, "
+                f"resident {bs.battery_bytes(f16) / 1e6:.2f} MB (bf16 {bs.battery_bytes(bf16) / 1e6:.2f} MB); "
+                f"batch-norm statistics from {F16_CALIBRATION_ROWS} G images; tensors past float16's range "
+                f"(stored as inf, as the JAX cast stores them): {overflowed or 'none'}")
+
+        per_kind = expected_step_counts(st.generator, st.discriminator, len(spec.groups))
+        with Phase("float16 main path (25a)"):
+            by_kind, restore = count_by_kind(gt)
+            remove = install_launch_recorder(seen)
+            history = len(trainer.metrics_history)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                trainer.train(F16_ITERS)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+            finally:
+                remove()
+                restore()
+            peak = torch.cuda.max_memory_allocated()
+            log(f"float16 main path: launches over train({F16_ITERS}) {counts}")
+            runs = {k: len(v) for k, v in by_kind.items()}
+            if runs != {"d_step": F16_ITERS, "d_reg_step": 1, "g_step": F16_ITERS, "g_reg_step": 1}:
+                fail(f"float16: step kinds run {runs}")
+            for kind in gt.STEP_KINDS:
+                for got in by_kind[kind]:
+                    if got != per_kind[kind]:
+                        fail(f"float16 {kind}: launches {got}, expected {per_kind[kind]}")
+            attr_names = [f"g_{al.name}" for al in specs]
+            for h in trainer.metrics_history[history:]:
+                if not all(math.isfinite(v) for v in h.values()) or not all(n in h for n in attr_names):
+                    fail(f"float16: losses not finite or missing: {h}")
+                log(f"float16 train losses, iteration {h['iter']}: "
+                    + ", ".join(f"{n} {h[n]:.6g}" for n in attr_names) + f"; g_loss {h['g_loss']:.6g}")
+            bad = [n for n, q in st.generator.named_parameters() if q.grad is None or not torch.isfinite(q.grad).all()]
+            if bad:
+                fail(f"float16: G gradients missing or not finite after train({F16_ITERS}): {bad[:5]}")
+            for n, m in distinct_predictors(f16).items():
+                sd = m.state_dict()
+                if any(not torch.equal(v, before[n][k]) or v.dtype != before[n][k].dtype for k, v in sd.items()):
+                    fail(f"float16: {n} changed in training")
+                if any(v.is_floating_point() and v.dtype != torch.float16 for v in sd.values()):
+                    fail(f"float16: {n} holds {sorted({str(v.dtype) for v in sd.values()})}")
+            log(f"float16: G gradients finite; the battery unchanged and in float16; peak memory "
+                f"{peak / 2**30:.2f} GiB")
+
+        with Phase("float16 against bf16 (25a)"):
+            zt = torch.from_numpy(np.random.default_rng(0).standard_normal((cfg.batch, cfg.style_dim))
+                                  .astype(np.float32)).cuda()
+            legs = {}
+            for name, leg_cfg, s_, preds in (("g_step_battery_f16", f16_cfg, specs, f16),
+                                            ("g_step_battery_bf16", dataclasses.replace(cfg, predictor_dtype="bfloat16"),
+                                             specs, bf16),
+                                            ("g_step_adv_only", cfg, (), {})):
+                def run(c=leg_cfg, sp=s_, pr=preds):
+                    return ts.g_step(st, c, spec, (zt,), attr_losses=sp, predictors=pr,
+                                     augment_fn=trainer.augment_fn)
+
+                legs[name] = bs.Leg(tm.Exe(run, 1.0, cfg.batch), bs.battery_bytes(preds))
+            rows = bs.measure(legs, "cuda", F16_ROUNDS)
+            for r in rows:
+                log("float16 against bf16 " + bs.line(r) + f" (steps {[round(t, 2) for t in r['times_ms']]} ms)")
+            if not all(math.isfinite(r["ms"]) and r["ms"] > 0 and r["peak_bytes"] > 0 for r in rows):
+                fail(f"float16 against bf16: bad rows {rows}")
+    trainer.step_cfg = cfg
+    del f16, bf16, legs, before
+    torch.cuda.empty_cache()
+    return seen, counts
+
+
+def notebook_phase(build_root: Path, seen: Counter) -> dict:
+    """25d: ``gan_control_torch/examples/gan_control_inference_example.ipynb``'s
+    code cells in order on the card (``examples/notebook.py``), against
+    phase 13's controller directory (random weights: the age and
+    orientation heads, the generator's args enabling the predictor losses,
+    so cell 4 runs ``ControlExtractor``), with the counters set to 0 just
+    before and read just after. Returns the counts."""
+    from gan_control_torch.examples import notebook
+    from gan_control_torch.ops import kernels
+
+    out = build_root / "notebook"
+    if out.exists():
+        import shutil
+
+        shutil.rmtree(out)
+    env = {"GANCTL_CONTROLLER_DIR": str(build_root / "phase2" / "controller"), "GANCTL_OUT": str(out),
+           "GANCTL_DEVICE": "cuda"}
+    saved = {k: os.environ.get(k) for k in env}
+    with Phase("notebook (25d)"):
+        os.environ.update(env)
+        remove = install_launch_recorder(seen)
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            ns = notebook.run()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        finally:
+            remove()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        files = sorted(p.name for p in out.iterdir())
+        want = ["controlled.jpg", f"interp_{sorted(ns['ctrl'].fc_controls)[0]}.gif", "recovered_controls.jpg",
+                "samples.jpg"]
+        log(f"notebook: {len(notebook.code_cells())} code cells on the card, controllable groups "
+            f"{sorted(ns['ctrl'].fc_controls)}; wrote {files}; launches {counts}")
+        if files != sorted(want) or any((out / f).stat().st_size == 0 for f in files):
+            fail(f"notebook: wrote {files}, expected {sorted(want)}")
+        if not all(counts[n] for n in INFER_KERNELS) or any(counts[n] for n in KERNELS if n not in INFER_KERNELS):
+            fail(f"notebook: launches {counts}")
+    del ns
+    torch.cuda.empty_cache()
+    return counts
+
+
+def collective_scaling_start(build_root: Path, iteration_ms: float) -> dict:
+    """25c: ``python -m gan_control_torch.tools.collective_scaling`` started
+    (its Part A on gloo ranks on the CPU), given phase 7's plain iteration."""
+    out = build_root / "tools" / "collective_scaling.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    run = start_cli("gan_control_torch.tools.collective_scaling",
+                    ["--iteration_ms", f"{iteration_ms:.3f}", "--out", str(out)],
+                    build_root / "tools" / "collective_scaling.log")
+    return {"run": run, "out": out, "iteration_ms": iteration_ms}
+
+
+def collective_scaling_finish(started: dict, card: str) -> None:
+    """25c to its end: its lines logged; its JSON names this card and its
+    power limit, its parameter bytes are the JAX tool's, every step's
+    gradients are all-reduced once at exactly their bytes, and the
+    projection has its five rows."""
+    with Phase("collective_scaling (25c)"):
+        for line in finish_cli(started["run"], 600):
+            if not line.startswith("[W"):
+                log(f"collective_scaling: {line}")
+        rec = json.loads(started["out"].read_text())
+        ok = (rec["card"] or {}).get("nvidia_smi") == card and rec["flagship_param_bytes"] == JAX_FLAGSHIP_PARAM_BYTES \
+            and [r["chips"] for r in rec["projection"]] == [1, 2, 4, 8, 16] \
+            and rec["inputs"]["iteration_ms"]["value"] == round(started["iteration_ms"], 3) \
+            and all(st["gradient_all_reduces"] == 1 and st["gradient_ratio"] == 1.0
+                    for c in rec["collectives"] for st in c["steps"].values())
+        log(f"collective_scaling: worlds {[c['world'] for c in rec['collectives']]}, traffic ratio "
+            f"{rec['traffic_ratio']:.3f}, card {rec['card'] and rec['card'].get('nvidia_smi')}, parameter bytes "
+            f"{rec['flagship_param_bytes']} (the JAX tool's {JAX_FLAGSHIP_PARAM_BYTES}); {started['out']}")
+        if not ok:
+            fail(f"collective_scaling: its record is wrong: {json.dumps(rec)[:2000]}")
+
+
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -5185,7 +5704,11 @@ def main() -> None:
 
     # 7-9. training
     seen, counts, synthetic, (seen9, counts9) = train_phase(build_root)
-    ffhq_run = image_folder_phase(build_root, synthetic)
+    # 7b's preempted command line runs beside phase 9, which times nothing
+    folder_started = image_folder_start(build_root)
+    with Phase("train card vs cpu (with the predictors on their own)"):
+        int8_started = int8_cpu_start(build_root, *train_card_vs_cpu())
+    ffhq_run = image_folder_phase(build_root, synthetic, folder_started)
     with Phase("train kernels"):
         totals = train_kernel_phase(seen)
         blur_sep_variant_check()
@@ -5198,8 +5721,6 @@ def main() -> None:
         log(f"blur2x vs library: {label}: host-rate {tot['ms']:.4f} ms vs {tot['library_ms']:.4f} ms "
             f"({tot['ms'] / tot['library_ms']:.2f}x); device {tot['device_ms']:.4f} ms vs "
             f"{tot['library_device_ms']:.4f} ms; bound {tot['bound_ms']:.4f} ms")
-    with Phase("train card vs cpu (with the predictors on their own)"):
-        int8_started = int8_cpu_start(build_root, *train_card_vs_cpu())
 
     # 10-14. phase 2
     seen2, counts2 = phase2(build_root)
@@ -5220,8 +5741,12 @@ def main() -> None:
         fail(f"the serving path launched {counts3}")
     merge_totals(totals, totals3)
 
-    # 16. evaluation
-    seen4, counts4 = evaluation_phase(build_root)
+    # 16. evaluation; 18 (a) and (b), AFHQ's and MetFaces' command lines,
+    # run beside phase 16's (which time nothing) and end before its
+    # in-process part
+    eval_folder = evaluation_folder(build_root)
+    started18 = afhq_metfaces_start(build_root, ffhq_run, eval_folder)
+    seen4, counts4 = evaluation_phase(build_root, eval_folder, lambda: afhq_metfaces_wait(started18))
     with Phase("evaluation kernels"):
         totals4 = train_kernel_phase(seen4, "evaluation", both_dtypes=False)
     for n in INFER_KERNELS:
@@ -5231,7 +5756,7 @@ def main() -> None:
     merge_totals(totals, totals4)
 
     # 18. AFHQ and MetFaces: ADA, the three new nets, transfer learning
-    seen5, counts5 = afhq_metfaces_phase(build_root, ffhq_run, build_root / "evaluation" / "images")
+    seen5, counts5 = afhq_metfaces_phase(started18)
     with Phase("afhq and metfaces kernels"):
         totals5 = train_kernel_phase(seen5, f"AFHQ and MetFaces train({NEW_ITERS})", both_dtypes=False)
     for n in GD_KERNELS:
@@ -5239,6 +5764,10 @@ def main() -> None:
     if counts5 != {n: sum(c for key, c in seen5.items() if key[0] == n) for n in KERNELS}:
         fail(f"the AFHQ and MetFaces launch hooks disagree with the counters {counts5}")
     merge_totals(totals, totals5)
+
+    # 22b, the control-fidelity harness (its phase 1 is the longest of the
+    # blob world's trainings), starts here and trains beside phases 19-22
+    blob_procs = start_blob_children(build_root, ("fidelity",))
 
     # 19-20. alignment in the phase-2a sweep, and projection
     seen6: Counter = Counter()
@@ -5264,20 +5793,28 @@ def main() -> None:
         log(f"distributed totals {n}: launches {counts7[n]} " + totals_text(totals7[n]))
     merge_totals(totals, totals7)
 
-    # 22. the blob world, the marge mapping and meshed serving; the two
-    # blob-world harnesses train in processes of their own meanwhile
+    # 22. the blob world, the marge mapping and meshed serving; the
+    # convergence harness trains in a process of its own meanwhile, beside
+    # the control-fidelity one
     seen8: Counter = Counter()
     counts8: dict = {n: 0 for n in KERNELS}
-    blob_procs = start_blob_children(build_root)
+    blob_procs = {**start_blob_children(build_root, ("convergence",)), **blob_procs}
+    # 25c: collective_scaling on phase 7's plain iteration, its Part A on
+    # the CPU, read at the end
+    scaling = collective_scaling_start(build_root, synthetic["median"])
     marge_phase(build_root, seen8, counts8)
     meshed_serving_phase(build_root, seen8, counts8)
-    # 23b-c meanwhile: the measuring tools' untimed work; and 24a-b, 24d
-    # and 24e, which time no step
+    # 23b-c meanwhile: the measuring tools' untimed work; and 24a-b, 24d,
+    # 24e, 25b and 25d, which time no step
     measuring = measuring_start(build_root)
-    seen10, counts10, (t_dq, tb_dq, by_dq, err_dq) = int8_train_phase(build_root)
+    seen10, counts10, (t_dq, tb_dq, by_dq, err_dq), int8_trainer = int8_train_phase(build_root)
     with Phase("int8 card vs cpu (24d)"):
         int8_card_vs_cpu(int8_started)
+    with Phase("float16 card vs cpu (25b)"):
+        float16_card_vs_cpu(int8_started)
     developer_probes_phase()
+    seen11: Counter = Counter()
+    counts_nb = notebook_phase(build_root, seen11)
     blob_phase(build_root, blob_procs, seen8, counts8)
     with Phase("phase 22 kernels"):
         totals8 = train_kernel_phase(seen8, "phase 22", both_dtypes=False)
@@ -5306,19 +5843,39 @@ def main() -> None:
     merge_totals(totals, totals10)
     battery_share_phase()
 
+    # 25. float16 storage of the battery on 24b's trainer (25a; 25b and the
+    # notebook, 25d, ran beside phase 22's blob-world processes) and
+    # collective_scaling (25c)
+    seen25a, counts25a = float16_train_phase(int8_trainer)
+    int8_trainer.close()
+    del int8_trainer
+    torch.cuda.empty_cache()
+    collective_scaling_finish(scaling, card)
+    seen11.update(seen25a)
+    counts11 = {n: counts_nb[n] + counts25a[n] for n in KERNELS}
+    if counts11 != {n: sum(c for key, c in seen11.items() if key[0] == n) for n in KERNELS}:
+        fail(f"phase 25: the launch hooks disagree with the counters {counts11}")
+    with Phase("phase 25 kernels"):
+        totals11 = train_kernel_phase(seen11, "phase 25", both_dtypes=False)
+    for n in KERNELS:
+        log(f"phase 25 totals {n}: launches {counts11[n]} " + totals_text(totals11[n]))
+    merge_totals(totals, totals11)
+
     entries = []
     for n, (route, src, replaces) in KERNELS.items():
         tot = totals[n]
         entries.append({
             "name": n, "route": route, "source": src, "replaces": replaces,
             "launches": counts[n] + counts2[n] + counts3[n] + counts4[n] + counts5[n] + counts6[n]
-            + counts7[n] + counts8[n] + counts9[n] + counts10[n],
+            + counts7[n] + counts8[n] + counts9[n] + counts10[n] + counts11[n],
             "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
             "library_ms": tot["library_ms"],
         })
+    slowest = sorted(PHASE_SECONDS, key=lambda kv: -kv[1])[:12]
+    log("phase seconds, the slowest: " + "; ".join(f"{name} {sec:.1f}" for name, sec in slowest))
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)

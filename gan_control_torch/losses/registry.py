@@ -68,17 +68,19 @@ def distinct_predictors(predictors: dict[str, nn.Module]) -> dict[str, nn.Module
 def cast_predictor_params(predictors: dict[str, nn.Module], dtype,
                           device: str | torch.device | None = None) -> dict[str, nn.Module]:
     """Store the battery in ``dtype`` (``"float32"``, ``"bfloat16"``,
-    ``"int8"`` or the torch dtype) and, with ``device``, on that device,
-    each distinct module once, so the recon-3d sub-losses keep sharing one
-    module.
+    ``"float16"``, ``"int8"`` or the torch dtype) and, with ``device``, on
+    that device, each distinct module once, so the recon-3d sub-losses keep
+    sharing one module.
 
-    Float types cast the modules in place and return ``predictors``. Under
-    bf16 images every predictor op casts its weights to bf16 at use anyway:
-    storing them in bf16 does that rounding once and halves the battery's
-    weight reads. ``"int8"`` returns an ``int8_storage.Int8Battery`` of the
-    same modules, their floating tensors quantised per tensor into one int8
-    store and dequantised to bf16 once per ``g_step`` (a battery that is
-    one already is returned as it is)."""
+    Float types cast every floating tensor of the modules (parameters and
+    buffers, as the JAX cast does every floating leaf) in place and return
+    ``predictors``. Under bf16 or float16 images every predictor op casts
+    its weights to the images' dtype at use anyway: storing them in it does
+    that rounding once and halves the battery's weight reads. ``"int8"``
+    returns an ``int8_storage.Int8Battery`` of the same modules, their
+    floating tensors quantised per tensor into one int8 store and
+    dequantised to bf16 once per ``g_step`` (a battery that is one already
+    is returned as it is)."""
     dtype = battery_dtype(dtype)
     if dtype == torch.int8:
         if isinstance(predictors, Int8Battery) or not predictors:

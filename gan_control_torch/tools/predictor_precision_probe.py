@@ -193,12 +193,7 @@ def int8_witness(cpu8: Int8Battery, loss_name: str, images: torch.Tensor, proj_s
     weights, on ``images`` (NHWC f32, on the CPU): the image gradient of
     the projection, and the hair net's mask logit (None for the others),
     on which every side then runs."""
-    witness = cpu8.float_module(loss_name, torch.bfloat16).double()
-    logit = None
-    if hasattr(witness, "mask_logit"):
-        with torch.no_grad():
-            logit = witness.mask_logit(witness.resize_input(images.double()))
-    return _projection_grad(witness, images.double(), proj_seed, logit), logit
+    return witness_of(cpu8.float_module(loss_name, torch.bfloat16), images, proj_seed)
 
 
 def int8_net_grads(store: Int8Battery, loss_name: str, images: torch.Tensor, proj_seed: int, logit) -> dict:
@@ -213,12 +208,33 @@ def int8_net_grads(store: Int8Battery, loss_name: str, images: torch.Tensor, pro
 
 
 def int8_net_distances(witness: torch.Tensor, cpu: dict, card: dict) -> dict:
-    """Relative L2 distances of ``int8_net_grads`` of the CPU's and the
-    card's stores from the witness, and of the card's f32 gradient from
-    the CPU's."""
-    out = {f"{dev}_{t}": _rel(grads[t], witness) for dev, grads in (("cpu", cpu), ("card", card))
-           for t in ("bf16", "f32")}
+    """Relative L2 distances of the CPU's and the card's image gradients
+    (``int8_net_grads`` or ``net_grads``: label -> gradient) from the
+    witness, and of the card's f32 gradient from the CPU's."""
+    out = {f"{dev}_{t}": _rel(grads[t], witness) for dev, grads in (("cpu", cpu), ("card", card)) for t in cpu}
     out["card_f32_vs_cpu_f32"] = _rel(card["f32"], cpu["f32"])
+    return out
+
+
+def witness_of(module, images: torch.Tensor, proj_seed: int):
+    """A float64 witness of ``module``'s net on its own (rounded) weights,
+    on ``images`` (NHWC, on the CPU): its float64 copy's image gradient of
+    the projection, and the hair net's mask logit (None for the others)."""
+    witness = copy.deepcopy(module).double()
+    logit = None
+    if hasattr(witness, "mask_logit"):
+        with torch.no_grad():
+            logit = witness.mask_logit(witness.resize_input(images.double()))
+    return _projection_grad(witness, images.double(), proj_seed, logit), logit
+
+
+def net_grads(nets: dict, images: torch.Tensor, proj_seed: int, logit) -> dict:
+    """The projection's image gradient of each net of ``nets`` (label ->
+    module), the images cast to the net's device and dtype."""
+    out = {}
+    for label, net in nets.items():
+        p = next(net.parameters())
+        out[label] = _projection_grad(net, images.to(p.device, p.dtype), proj_seed, logit)
     return out
 
 

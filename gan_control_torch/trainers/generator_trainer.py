@@ -149,7 +149,8 @@ class GeneratorTrainer:
         batches in [-1, 1]; without one, ``data_config`` names the dataset
         (a missing path raises). ``attr_losses`` and ``predictors`` come
         from ``losses.registry.build_attr_losses``; the predictors are moved
-        to ``device`` and cast to ``predictor_dtype`` in place (the
+        to ``device`` and cast to ``predictor_dtype`` (``"float32"``,
+        ``"bfloat16"`` or ``"float16"``) in place (the
         recon-3d sharing kept), or under ``"int8"`` quantised into one
         store (``losses/int8_storage.py``), their float tensors freed.
         ``transfer_learning_model`` (``enabled``, ``model_path``: a phase-1

@@ -150,8 +150,8 @@ class TrainStepConfig:
     # re-run each frozen predictor in the backward instead of holding every
     # predictor's activations at once
     remat_predictors: bool = True
-    # the battery's storage dtype: "float32" (the reference), "bfloat16" or
-    # "int8" (dequantised to bf16 once per g_step)
+    # the battery's storage dtype: "float32" (the reference), "bfloat16",
+    # "float16" or "int8" (dequantised to bf16 once per g_step)
     predictor_dtype: str = "float32"
 
     @property
@@ -261,7 +261,8 @@ def _attr_losses_for_batch(
     over the ``num_mini`` mini-batch chunks, and each loss as a metric
     ``g_<name>``. With ``arrangement`` (its tables as tensors on the images'
     device) the pairs come from its masks instead of the spec's slots.
-    ``dtype`` is the battery's storage dtype: under int8 ``predictors`` is
+    ``dtype`` is the battery's storage dtype (the images are cast to it;
+    float16 and bf16 batteries run in it): under int8 ``predictors`` is
     the ``Int8Battery`` of ``cast_predictor_params``, dequantised here to
     bf16 in one launch, before any net and outside the checkpoints (as the
     JAX step dequantises before it casts the images), and the nets and the

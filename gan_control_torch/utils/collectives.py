@@ -28,18 +28,104 @@ agreements (:func:`any_rank`, :func:`barrier`, :func:`broadcast_object`)
 without a device sync. A CUDA tensor under gloo (ranks that share a card)
 is staged through the host. With no process group, or at world size 1,
 every function returns its input and issues no call.
+
+:func:`recording` lists every call that this process issues (its op, what
+it carries, the tensor's shape, dtype and bytes, and optionally its ms
+between device syncs): ``chip_smoke.py``'s "distributed collectives" lines
+and ``tools/collective_scaling.py`` read it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import functools
+import pickle
+import sys
+import time
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
 
 _SHARDED = contextvars.ContextVar("gan_control_torch_sharded_batch", default=False)
+_PACKAGE = Path(__file__).resolve().parents[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class Call:
+    """One collective that this process issued: ``op`` is ``all_reduce``,
+    ``all_gather``, ``broadcast_object`` or ``barrier``; ``what`` says what
+    it carries (``gradients``, ``metrics``, ``gather <file:line>``, the
+    backward of that gather, ``any_rank``, ...); ``nbytes`` is this rank's
+    payload (the pickled object for ``broadcast_object``); ``ms`` the time
+    between device syncs when recorded with ``timed``."""
+
+    op: str
+    what: str
+    shape: tuple
+    dtype: str
+    nbytes: int
+    ms: float | None = None
+
+
+class _Recorder:
+    def __init__(self, calls: list, timed: bool):
+        self.calls, self.timed = calls, timed
+
+
+# the active recorders: a list, not a context variable, because a gather's
+# backward runs on autograd's threads
+_RECORDERS: list[_Recorder] = []
+
+
+@contextlib.contextmanager
+def recording(calls: list, timed: bool = False):
+    """Within the block every collective this process issues (on any
+    thread) appends a :class:`Call` to ``calls``. ``timed``: each call on a
+    CUDA tensor is bracketed by device syncs and its ms recorded (a
+    measurement's setting: the syncs stall the stream)."""
+    rec = _Recorder(calls, timed)
+    _RECORDERS.append(rec)
+    try:
+        yield calls
+    finally:
+        _RECORDERS.remove(rec)
+
+
+def _issue(op: str, what: str, t: torch.Tensor | None, fn, nbytes: int | None = None):
+    """``fn()``, recorded as a :class:`Call` of ``t`` while a recorder is
+    active."""
+    if not _RECORDERS:
+        return fn()
+    timed = t is not None and t.is_cuda and any(r.timed for r in _RECORDERS)
+    if timed:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    out = fn()
+    if timed:
+        torch.cuda.synchronize(t.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    if t is not None:
+        shape, dtype, nbytes = tuple(t.shape), str(t.dtype).removeprefix("torch."), t.numel() * t.element_size()
+    else:
+        shape, dtype = (), "object"
+    for r in list(_RECORDERS):
+        r.calls.append(Call(op, what, shape, dtype, nbytes or 0, ms if r.timed else None))
+    return out
+
+
+def _caller(depth: int) -> str:
+    """``file:line`` of the frame ``depth`` levels above the caller, the
+    file relative to the package where it lies in it; empty while nothing
+    records."""
+    if not _RECORDERS:
+        return ""
+    frame = sys._getframe(depth + 1)
+    path = Path(frame.f_code.co_filename).resolve()
+    name = str(path.relative_to(_PACKAGE)) if path.is_relative_to(_PACKAGE) else path.name
+    return f"{name}:{frame.f_lineno}"
 
 
 def world() -> tuple[int, int]:
@@ -71,25 +157,31 @@ def _staged(t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend() == "gloo"
 
 
-def _all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM) -> None:
-    if _staged(t):
-        host = t.cpu()
-        dist.all_reduce(host, op=op)
-        t.copy_(host)
-    else:
-        dist.all_reduce(t, op=op, group=_group_of(t))
+def _all_reduce_(t: torch.Tensor, what: str, op=dist.ReduceOp.SUM) -> None:
+    def run():
+        if _staged(t):
+            host = t.cpu()
+            dist.all_reduce(host, op=op)
+            t.copy_(host)
+        else:
+            dist.all_reduce(t, op=op, group=_group_of(t))
+
+    _issue("all_reduce", what, t, run)
 
 
-def _all_gather(t: torch.Tensor) -> torch.Tensor:
+def _all_gather(t: torch.Tensor, what: str) -> torch.Tensor:
     """Every rank's ``t`` (equal shapes), concatenated along dim 0 in rank
     order."""
     src = t.detach().contiguous()
     device = src.device
-    if _staged(src):
-        src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(world()[1])]
-    dist.all_gather(parts, src, group=_group_of(src))
-    return torch.cat(parts, dim=0).to(device)
+
+    def run():
+        staged = src.cpu() if _staged(src) else src
+        parts = [torch.empty_like(staged) for _ in range(world()[1])]
+        dist.all_gather(parts, staged, group=_group_of(staged))
+        return torch.cat(parts, dim=0).to(device)
+
+    return _issue("all_gather", what, src, run)
 
 
 @contextlib.contextmanager
@@ -137,14 +229,15 @@ class _SumOverRanks(torch.autograd.Function):
     each rank's input reaches every rank's output."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, what):
+        ctx.what = what
         out = x.detach().clone(memory_format=torch.contiguous_format)
-        _all_reduce_(out)
+        _all_reduce_(out, what)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return _SumOverRanks.apply(g)
+        return _SumOverRanks.apply(g, ctx.what), None
 
 
 class _Gather(torch.autograd.Function):
@@ -152,24 +245,25 @@ class _Gather(torch.autograd.Function):
     summed over ranks, this rank's rows of it."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _all_gather(x)
+    def forward(ctx, x, site):
+        ctx.site = site
+        return _all_gather(x, f"gather {site}")
 
     @staticmethod
     def backward(ctx, g):
-        return _SumOverRanks.apply(g)[rows_of_rank(g.shape[0])]
+        return _SumOverRanks.apply(g, f"backward of gather {ctx.site}")[rows_of_rank(g.shape[0])], None
 
 
 def gather_batch(x: torch.Tensor) -> torch.Tensor:
     """The global batch of ``x`` inside :func:`sharded_batch` (differentiable
     to any order), ``x`` outside it."""
-    return _Gather.apply(x) if _SHARDED.get() else x
+    return _Gather.apply(x, _caller(1)) if _SHARDED.get() else x
 
 
 def all_gather(x: torch.Tensor) -> torch.Tensor:
     """Every rank's ``x`` concatenated along dim 0 (no autograd); ``x`` at
     world size 1."""
-    return x if world()[1] == 1 else _all_gather(x)
+    return x if world()[1] == 1 else _all_gather(x, f"all_gather {_caller(1)}")
 
 
 def mean_grads_(params) -> None:
@@ -180,7 +274,7 @@ def mean_grads_(params) -> None:
         return
     grads = [p.grad for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    _all_reduce_(flat)
+    _all_reduce_(flat, "gradients")
     flat /= size
     offset = 0
     for g in grads:
@@ -197,7 +291,7 @@ def mean_metrics(metrics: dict) -> dict:
         return metrics
     names = list(metrics)
     flat = torch.stack([metrics[k].detach().float().reshape(()) for k in names])
-    _all_reduce_(flat)
+    _all_reduce_(flat, "metrics")
     flat /= size
     return dict(zip(names, flat.unbind()))
 
@@ -207,14 +301,14 @@ def any_rank(flag: bool) -> bool:
     if world()[1] == 1:
         return flag
     t = torch.tensor([int(flag)], dtype=torch.int32)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=cpu_group())
+    _issue("all_reduce", "any_rank", t, lambda: dist.all_reduce(t, op=dist.ReduceOp.MAX, group=cpu_group()))
     return bool(t.item())
 
 
 def barrier() -> None:
     """Every rank waits here for the others (on the CPU group)."""
     if world()[1] > 1:
-        dist.barrier(group=cpu_group())
+        _issue("barrier", "barrier", None, lambda: dist.barrier(group=cpu_group()))
 
 
 def broadcast_object(obj):
@@ -222,5 +316,7 @@ def broadcast_object(obj):
     if world()[1] == 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0, group=cpu_group())
+    nbytes = len(pickle.dumps(obj)) if _RECORDERS and world()[0] == 0 else 0
+    _issue("broadcast_object", "broadcast_object", None,
+           lambda: dist.broadcast_object_list(box, src=0, group=cpu_group()), nbytes)
     return box[0]

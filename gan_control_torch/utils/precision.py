@@ -28,7 +28,8 @@ import torch
 ENV_VAR = "GANCTL_PREDICTOR_PRECISION"
 VALID = ("default", "tensorfloat32", "highest")
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
+           "int8": torch.int8}
 
 
 def predictor_precision(config_value: str | None = None, fallback: str = "highest") -> str:
@@ -132,11 +133,13 @@ def with_predictor_precision(fn: Callable[..., Any], config_value: str | None = 
 
 
 def battery_dtype(dtype: str | torch.dtype) -> torch.dtype:
-    """``"float32"``, ``"bfloat16"`` or ``"int8"`` (or the torch dtype) ->
-    the battery's storage dtype. Float32 and bfloat16 batteries compute in
+    """``"float32"``, ``"bfloat16"``, ``"float16"`` or ``"int8"`` (or the
+    torch dtype) -> the battery's storage dtype. The float dtypes compute in
     their storage dtype; int8 storage (per-tensor symmetric, as the JAX
     package's ``predictor_dtype: "int8"``) computes in bfloat16
-    (:func:`battery_compute_dtype`). Any other dtype raises ``ValueError``."""
+    (:func:`battery_compute_dtype`). Any other dtype raises ``ValueError``:
+    float64 too, which the JAX package would silently run as float32
+    without x64."""
     if isinstance(dtype, torch.dtype):
         value = dtype
     elif dtype in _DTYPES:
@@ -144,7 +147,7 @@ def battery_dtype(dtype: str | torch.dtype) -> torch.dtype:
     else:
         raise ValueError(f"predictor_dtype {dtype!r}: expected one of {sorted(_DTYPES)}")
     if value not in _DTYPES.values():
-        raise ValueError(f"predictor_dtype {value}: expected float32, bfloat16 or int8")
+        raise ValueError(f"predictor_dtype {value}: expected float32, bfloat16, float16 or int8")
     return value
 
 

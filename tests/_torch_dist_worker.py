@@ -8,7 +8,8 @@ one intra-op thread; ``multihost.initialize(device="cpu")`` reads it. A job
 reads ``<dir>/inputs.pt`` and writes what it found to ``<dir>/rank<r>.pt``.
 The tests (``tests/test_torch_distributed.py``: job ``host``;
 ``tests/test_torch_distributed_train.py``: job ``train``) run the same
-functions in one process at the global batch and hold the ranks to them.
+functions in one process at the global batch and hold the ranks to them;
+job ``train`` also records Part A of ``tools/collective_scaling.py``.
 This module imports torch and the port only, so that a rank starts quickly.
 """
 
@@ -382,11 +383,13 @@ def host_job(inputs: dict, out_dir: Path) -> dict:
 
 
 def train_job(inputs: dict, out_dir: Path) -> dict:
+    from gan_control_torch.tools import collective_scaling
     from gan_control_torch.utils import multihost
 
     rank, size = multihost.initialize(device="cpu")
     res: dict = {"rank": rank, "steps": run_steps(inputs, rank, size),
-                 "d_reg_only": run_steps(inputs, rank, size, steps=("d_reg_step",))}
+                 "d_reg_only": run_steps(inputs, rank, size, steps=("d_reg_step",)),
+                 "collective_scaling": collective_scaling.step_calls(rank, size)}
     tr, ran = run_trainer(trainer_config(), 3, init_dirs=False)
     res["trainer"] = trainer_result(tr, ran)
     # SIGTERM on rank 1 alone during iteration 1; then a resume by both

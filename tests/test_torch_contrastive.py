@@ -324,6 +324,11 @@ def test_battery_dtype():
     assert precision.battery_dtype(torch.int8) is torch.int8
     assert precision.battery_compute_dtype("int8") is torch.bfloat16
     assert precision.battery_compute_dtype("float32") is torch.float32
-    for bad in ("float16", torch.float16):
+    # float16 stores and computes in float16, as the JAX step
+    assert precision.battery_dtype("float16") is torch.float16
+    assert precision.battery_dtype(torch.float16) is torch.float16
+    assert precision.battery_compute_dtype("float16") is torch.float16
+    # float64 is refused (the JAX package would run it as float32 without x64)
+    for bad in ("float64", torch.float64, "half"):
         with pytest.raises(ValueError):
             precision.battery_dtype(bad)

@@ -6,8 +6,9 @@ Two ranks run ``tests/_torch_dist_worker.py train`` once for the whole file
 steps in a row from one state on their halves of batch 8 (size 16, ADA
 adaptive, a small contrastive net, style mixing, path length), R1 alone
 from the initial state, a ``GeneratorTrainer`` for 3 iterations, one that
-rank 1 alone sends SIGTERM during iteration 1, and its checkpoint resumed.
-This process runs the steps in one process at the global batch meanwhile,
+rank 1 alone sends SIGTERM during iteration 1, and its checkpoint resumed,
+and Part A of ``tools/collective_scaling.py`` (the four steps at its small
+shapes, every collective recorded). This process runs the steps in one process at the global batch meanwhile,
 and R1 through the JAX ``d_reg_step`` on the same parameters.
 
 Tolerances: against one process, the same f32 arithmetic on half the rows
@@ -35,6 +36,7 @@ from gan_control_tpu.training.train_step import TrainStepConfig as JStepConfig
 from gan_control_tpu.training.train_step import make_train_steps
 
 import _torch_dist_worker as wk
+from gan_control_torch.tools import collective_scaling
 from gan_control_torch.utils.flax_bridge import flax_to_state_dict
 
 STEPS = ("d_step", "d_reg_step", "g_step", "g_reg_step")
@@ -200,3 +202,38 @@ def test_checkpoint_resumes_under_two_ranks_and_one_process(run):
     assert set(got) == set(want)
     for k, v in want.items():
         np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-12, err_msg=k)
+
+
+# the files whose rows each step gathers: the styles (``_gen_images``), the
+# D's minibatch-stddev input (real and fake in d_step), the contrastive
+# features and the path lengths
+GATHERS = {"d_step": ["models/blocks.py"] * 2,
+           "g_step": ["training/train_step.py", "models/blocks.py", "training/train_step.py"],
+           "d_reg_step": ["models/blocks.py"], "g_reg_step": ["training/gan_losses.py"]}
+
+
+@pytest.mark.parametrize("step", STEPS)
+def test_collective_scaling_counts_one_gradient_all_reduce_per_step(run, step):
+    """Part A of ``tools/collective_scaling.py`` on the two ranks: each
+    optimizer step all-reduces its net's gradients once, in one flat tensor
+    of exactly the parameter bytes (ratio 1.00), its metrics once; each
+    gather carries a tensor of the global batch's rows from its call site,
+    and each all-reduce beyond those is a gather's backward; both ranks
+    issue the same calls."""
+    ranks, _, _, _ = run
+    rec = collective_scaling.summarise(2, ranks[0]["collective_scaling"])["steps"][step]
+    calls = rec["calls"]
+    (grads,) = [c for c in calls if c["what"] == "gradients"]
+    assert grads["op"] == "all_reduce" and grads["bytes"] == rec["grad_bytes"] > 0
+    assert rec["gradient_all_reduces"] == 1 and rec["gradient_ratio"] == 1.0
+    assert [c["what"] for c in calls].count("metrics") == 1
+    gathers = [c for c in calls if c["op"] == "all_gather"]
+    assert [c["what"].split()[1].split(":")[0] for c in gathers] == GATHERS[step]
+    sites = {c["what"].removeprefix("gather ") for c in gathers}
+    for c in calls:
+        assert c["bytes"] == int(np.prod(c["shape"])) * 4 and c["dtype"] == "float32", c
+        if c["op"] == "all_reduce" and c["what"] not in ("gradients", "metrics"):
+            assert c["what"].removeprefix("backward of gather ") in sites, c
+    assert rec["traffic_ratio"] >= 1.0
+    other = collective_scaling.summarise(2, ranks[1]["collective_scaling"])["steps"][step]["calls"]
+    assert [(c["op"], c["what"], c["shape"]) for c in other] == [(c["op"], c["what"], c["shape"]) for c in calls]

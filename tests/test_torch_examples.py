@@ -85,6 +85,29 @@ def test_the_inference_example(controller_dir, tmp_path):
     assert Image.open(tmp_path / "interp_orientation.gif").n_frames == 2 * 6 - 1
 
 
+def test_the_notebook(controller_dir, tmp_path):
+    """``gan_control_torch/examples/gan_control_inference_example.ipynb``'s
+    code cells, run in order by ``examples/notebook.py`` with
+    ``GANCTL_DEVICE=cpu``: the same artifacts as the example script; its
+    cells import nothing of the JAX package and keep no outputs."""
+    from gan_control_torch.examples import notebook
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               GANCTL_CONTROLLER_DIR=str(controller_dir), GANCTL_OUT=str(tmp_path), GANCTL_DEVICE="cpu")
+    out = subprocess.run([sys.executable, "-m", "gan_control_torch.examples.notebook"], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert "skipped: generator args.json has no enabled predictor loss blocks" in out.stdout
+    # the first controllable group in sorted order, as the JAX notebook takes it
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["controlled.jpg", "interp_gamma.gif", "samples.jpg"]
+    cells = notebook.code_cells()
+    assert len(cells) == 7 and not any("jax" in c or "gan_control_tpu" in c for c in cells)
+    nb = json.loads(notebook.EXAMPLE.read_text())
+    assert all(not c.get("outputs") and c.get("execution_count") is None
+               for c in nb["cells"] if c["cell_type"] == "code")
+
+
 def test_the_serving_example_over_a_mesh(controller_dir, tmp_path):
     """Warm-up, an odd request on the ladder, uint8 output, the exported
     program replayed against the live path, with requests split over two

@@ -274,7 +274,7 @@ mods = [m.name for m in pkgutil.walk_packages(gan_control_torch.__path__, "gan_c
 for name in mods:
     importlib.import_module(name)
 # tools/ is not a package
-for tool in ("serving_bench", "convergence", "control_fidelity", "numerics_ab"):
+for tool in ("serving_bench", "convergence", "control_fidelity", "numerics_ab", "collective_scaling"):
     importlib.import_module(f"gan_control_torch.tools.{tool}")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "gan_control_tpu"))
@@ -313,7 +313,7 @@ align_project = {f"gan_control_torch.alignment.{m}" for m in (
     "gan_control_torch.projection.projection", "gan_control_torch.project"}
 assert align_project <= set(mods), sorted(align_project - set(mods))
 slice13 = {"gan_control_torch.utils.spherical_harmonics", "gan_control_torch.examples.inference_example",
-           "gan_control_torch.examples.serving_example"}
+           "gan_control_torch.examples.serving_example", "gan_control_torch.examples.notebook"}
 assert slice13 <= set(mods), sorted(slice13 - set(mods))
 assert "matplotlib" not in sys.modules
 assert len(mods) >= 50, mods
