@@ -76,9 +76,9 @@ seconds:
     images): every layer it returns and the image gradient of a seeded
     projection; then iteration 0 of a size-32 model (f32, TF32 off) from the
     same parameters and explicit random inputs, each step kind's losses and
-    gradients, and ``g_step`` with the battery. The hair mask may differ only
-    at pixels whose logit lies at the threshold; both sides then use the
-    CPU's mask;
+    gradients, the reg steps also on rematerialised G and D, and ``g_step``
+    with the battery. The hair mask may differ only at pixels whose logit
+    lies at the threshold; both sides then use the CPU's mask;
 10. phase-2a sweep: an FFHQ-512 phase-1 directory at random init (phase
     3's writer), then ``python -m gan_control_torch.make_attributes_df
     --batch_size 40 --number_of_samples 640`` into
@@ -261,9 +261,11 @@ seconds:
     train family (``d_step``, ``g_step``, ``d_reg_step``, ``g_reg_step``
     at FFHQ-512, batch 16): each step counted once by
     ``utils/accounting.py`` (FLOPs by op kind and precision, bytes), warmed
-    once and run 8 times back to back (CUDA events), its line, the
-    cadence-amortised summary, every MFU and HBM share in (0, 1.05], the
-    launches over the 10 runs equal to ``expected_step_counts`` times 10;
+    once and run 3 times back to back (CUDA events; the tool runs 8), its
+    line, the cadence-amortised summary, every MFU and HBM share in (0,
+    1.05], the launches over the 5 runs equal to ``expected_step_counts``
+    times 5 (the reg steps under the trainer's memory plan, their
+    recompute counted);
     (b) while phase 22's blob-world processes train: seeded random-init
     checkpoints of the fourteen nets ``convert_weights`` knows, in their
     reference layouts and file names, and a CPU child process that counts
@@ -340,15 +342,28 @@ seconds:
     ``gan_control_torch/examples/gan_control_inference_example.ipynb``'s
     code cells on the card against phase 13's controller directory, its
     four images written, its launches counted;
-26. the slowest phases' seconds, the script's total seconds; one JSON
+26. the training memory plans, on phase 7's trainer after 23a (FFHQ-512,
+    batch 16, bf16, the six-net battery): ``d_reg_step`` and
+    ``g_reg_step`` with ``TrainStepConfig.remat_reg`` off and on (the
+    trainer's default, JAX's: G's StyledConvs and D's ResBlocks recomputed
+    in the backward), each run from one saved state, the plans alternated:
+    the median ms of three runs, the peak memory, the launches of each run
+    equal to ``expected_step_counts`` under its plan (each backward pass
+    through a checkpointed block runs its forward again), the plan's losses
+    and gradients against the plain plan's at TRAIN_PARITY_RTOL; one
+    ``d_step`` and one ``g_step`` with G and D rematerialised in every step
+    (``model_config.remat``) beside the plain ones, with their ms, peak and
+    launches; phase 9 holds the size-32 rematerialised reg steps card
+    against CPU;
+27. the slowest phases' seconds, the script's total seconds; one JSON
     line of per-kernel numbers over ``train(5)``, the phase-2 launches of
     phases 10-12, the serving
     launches of phase 15, the evaluation launches of phase 16, the AFHQ and
     MetFaces launches of phase 18, the alignment and projection launches
     of phases 19-20, the two ranks' launches of phase 21b, phase 22's
-    launches, phase 23's, phase 24's and phase 25's (launches, times and
-    bounds summed over the eleven), then the card's line and the result
-    line.
+    launches, phase 23's (with phase 26's), phase 24's and phase 25's
+    (launches, times and bounds summed over the eleven), then the card's
+    line and the result line.
 
 Times, per launch at each shape and summed over a path's launches:
 "host-rate" is the mean over back-to-back eager calls between two CUDA
@@ -844,10 +859,13 @@ def row(fba: int, grad: int, up: int, down: int, sep: int = 0, dequant: int = 0)
             "blur2x_down": down, "blur_sep": sep, "dequant_int8": dequant}
 
 
-def expected_step_counts(g, d, n_groups: int) -> dict:
+def expected_step_counts(g, d, n_groups: int, remat_reg: bool) -> dict:
     """Kernel launches per step kind, and per ``save_images`` (the EMA
     generator's forward on the sample grid and on one matrix per each of
-    ``n_groups`` latent groups), derived from the modules.
+    ``n_groups`` latent groups), derived from the modules and the memory
+    plan: ``g.remat`` and ``d.remat`` (``model_config.remat``) in every
+    step, ``remat_reg`` (the trainer's ``step_cfg.remat_reg``) in the reg
+    steps.
 
     G: ``n_map`` mapping layers and ``n_conv`` StyledConvs run
     fused_bias_act, ``n_up`` ToRGB skips run blur2x_up. D: ``d_fba``
@@ -863,10 +881,30 @@ def expected_step_counts(g, d, n_groups: int) -> dict:
     the skip chain's first-order gradient is the projection noise carried
     back by blur2x_down, which no parameter touches, so the double backward
     launches no blur kernel in G.
+
+    Under the memory plan each backward pass through a checkpointed block
+    runs its forward again, up to its last saved tensor: a D ResBlock's two
+    fused_bias_act layers and two blur_sep pre-blurs, a StyledConv of G's
+    ``convs`` its fused_bias_act. The reg steps' double backward passes
+    through them twice (the first backward's recompute feeds the graph that
+    the second differentiates, which recomputes again); ``d_step`` runs D
+    on the fakes and on the reals, ``g_step`` passes through each net once.
+    Only the adversarial path is differentiated: the verification tail's
+    blocks are never recomputed.
     """
     from gan_control_torch.models.blocks import ConvLayer, EqualLinear
 
     n_map, n_conv, n_up = g_counts(g)
+    d_blk = d.n_blocks + d.n_split
+    d_re = row(2 * d_blk, 0, 0, 0, 2 * d_blk)  # one recompute of D's blocks
+    g_re = row(len(g.convs), 0, 0, 0)  # one recompute of G's StyledConvs
+    zero = row(0, 0, 0, 0)
+
+    def plus(r: dict, *extra: dict) -> dict:
+        return {n: r[n] + sum(e[n] for e in extra) for n in r}
+
+    d_all, g_all = d.remat, g.remat
+    d_reg, g_reg = d_all or remat_reg, g_all or remat_reg
     heads = [m for name, m in d.named_children() if name.endswith("_head")]
     in_heads = {id(x) for h in heads for x in h.modules()}
     fba = [m for m in d.modules() if (isinstance(m, ConvLayer) and m.activate)
@@ -876,10 +914,14 @@ def expected_step_counts(g, d, n_groups: int) -> dict:
     d_sep = sum(isinstance(m, ConvLayer) and m.downsample for m in d.modules())
     g_fba = n_map + n_conv
     return {
-        "d_step": row(g_fba + 2 * d_fba, 2 * d_fba, n_up, 0, 4 * d_sep),
-        "d_reg_step": row(d_fba, 2 * d_fba + d_low, 0, 0, 4 * d_sep),
-        "g_step": row(g_fba + d_fba, g_fba + d_fba, n_up, n_up, 2 * d_sep),
-        "g_reg_step": row(g_fba, 3 * n_conv + n_map, n_up, n_up, 0),
+        "d_step": plus(row(g_fba + 2 * d_fba, 2 * d_fba, n_up, 0, 4 * d_sep),
+                       *(d_re, d_re) if d_all else ()),
+        "d_reg_step": plus(row(d_fba, 2 * d_fba + d_low, 0, 0, 4 * d_sep),
+                           *(d_re, d_re) if d_reg else ()),
+        "g_step": plus(row(g_fba + d_fba, g_fba + d_fba, n_up, n_up, 2 * d_sep),
+                       d_re if d_all else zero, g_re if g_all else zero),
+        "g_reg_step": plus(row(g_fba, 3 * n_conv + n_map, n_up, n_up, 0),
+                           *(g_re, g_re) if g_reg else ()),
         "save_images": row((1 + n_groups) * g_fba, 0, (1 + n_groups) * n_up, 0, 0),
     }
 
@@ -1041,7 +1083,8 @@ def train_phase(build_root: Path) -> tuple[Counter, dict, dict, tuple]:
         if len(trainer.attr_losses) != 6 or len(nets) != 6:
             fail("configs/ffhq.json should give six losses on six nets")
         pred_before = {n: {k: v.detach().clone() for k, v in m.state_dict().items()} for n, m in nets.items()}
-        per_kind = expected_step_counts(st.generator, st.discriminator, len(trainer.spec.groups))
+        per_kind = expected_step_counts(st.generator, st.discriminator, len(trainer.spec.groups),
+                                        trainer.step_cfg.remat_reg)
         log(f"train: expected launches per step kind {per_kind}")
 
     with Phase("train dry run"):
@@ -1143,8 +1186,10 @@ def train_phase(build_root: Path) -> tuple[Counter, dict, dict, tuple]:
             fail(f"bad g_ema output {tuple(img.shape)}")
         log(f"g_ema through Inference: {tuple(img.shape)} {img.dtype}, checkpoint {inf.ckpt_iter}, "
             f"mean {float(img.mean()):.4f}")
-    # phase 23a: train_mfu's train family on this trainer's state and battery
+    # phase 23a: train_mfu's train family on this trainer's state and
+    # battery; phase 26: the memory plans on the same state
     measuring = mfu_train_phase(trainer, per_kind)
+    memory_plan_phase(trainer, *measuring)
     trainer.close()
     del trainer, inf, img
     torch.cuda.empty_cache()
@@ -1747,8 +1792,9 @@ def train_card_vs_cpu() -> tuple[dict, list, dict]:
     """Phase 9: iteration 0 of a size-32 model (max_channels 64, batch 16 in
     the config's 7-group arrangement, f32, TF32 off) on the card and on the
     CPU from the same parameters and explicit random inputs: each step
-    kind's losses and gradients, each step from the same initial state;
-    and ``g_step`` again with the config's six-loss battery (f32,
+    kind's losses and gradients, each step from the same initial state, the
+    reg steps also on rematerialised G and D (``remat_reg``); and
+    ``g_step`` again with the config's six-loss battery (f32,
     batch-norm statistics set from this G's images), its G gradients held
     to BATTERY_PARITY_RTOL. Before it, each of the battery's
     six nets on its own (``predictor_card_vs_cpu``) on two of those images
@@ -1767,6 +1813,7 @@ def train_card_vs_cpu() -> tuple[dict, list, dict]:
     tc = config["training_config"]
     spec = build_group_spec(config)
     cfg = ts.TrainStepConfig(batch=tc["batch"], mini_batch=tc["mini_batch"])
+    remat_cfg = dataclasses.replace(cfg, remat_reg=True)
     rng = np.random.default_rng(5)
     b = tc["batch"]
     z = torch.from_numpy(rng.standard_normal((b, 512)).astype(np.float32))
@@ -1822,6 +1869,11 @@ def train_card_vs_cpu() -> tuple[dict, list, dict]:
                 predictors=preds[dev]),
             "g_reg_step": lambda st: ts.g_reg_step(
                 st, cfg, (mv(z[: b // 2]),), noise=[mv(n[: b // 2]) for n in noise],
+                path_noise=mv(path_noise)),
+            # the memory plan's reg steps (phase 26): G and D rematerialised
+            "d_reg_step rematerialised": lambda st: ts.d_reg_step(st, remat_cfg, mv(real)),
+            "g_reg_step rematerialised": lambda st: ts.g_reg_step(
+                st, remat_cfg, (mv(z[: b // 2]),), noise=[mv(n[: b // 2]) for n in noise],
                 path_noise=mv(path_noise)),
         }
         out = {}
@@ -3073,7 +3125,7 @@ def new_trainer_in_process(name: str, config: dict, seen: Counter, counts: dict)
     st = tr.state
     if [s.name for s in specs] != list(NEW_LOSSES[name]) or len(tr.spec.groups) != NEW_GROUPS[name]:
         fail(f"{name}: battery {[s.name for s in specs]}, {len(tr.spec.groups)} groups")
-    per_kind = expected_step_counts(st.generator, st.discriminator, NEW_GROUPS[name])
+    per_kind = expected_step_counts(st.generator, st.discriminator, NEW_GROUPS[name], tr.step_cfg.remat_reg)
     tr.profile_steps = True
     torch.cuda.reset_peak_memory_stats()
     by_kind, restore = count_by_kind(gt)
@@ -3785,7 +3837,7 @@ def ffhq_rank(rank: int, out_dir: str, config_path: str) -> None:
         gt.GeneratorTrainer.close = close
     tr = trainers[0]
     st = tr.state
-    expected = expected_step_counts(st.generator, st.discriminator, len(tr.spec.groups))
+    expected = expected_step_counts(st.generator, st.discriminator, len(tr.spec.groups), tr.step_cfg.remat_reg)
     digest, step = params_digest(st.generator, st.discriminator, st.g_ema), st.step
     real = tr._to_device(next(synthetic_data_loader(tr.step_cfg.batch, tr.mc["size"], seed=1, shard_index=rank,
                                                     num_shards=tr.world)))
@@ -4136,11 +4188,12 @@ def blob_counts(iters: int, eval_every: int) -> dict:
     four sweeps of four chunks each; the toy battery launches none)."""
     from gan_control_torch.models.factory import build_discriminator, build_generator, build_group_spec
     from gan_control_torch.tools import convergence
+    from gan_control_torch.trainers import generator_trainer as gt
 
     config = convergence.toy_config(iters)
     g = build_generator(config, build_group_spec(config), device="cpu")
     d = build_discriminator(config, device="cpu")
-    per = expected_step_counts(g, d, 2)
+    per = expected_step_counts(g, d, 2, gt.remat_reg_plan(config["model_config"]))
     n_map, n_conv, n_up = g_counts(g)
     tc = config["training_config"]
     runs = {"d_step": iters, "g_step": iters,
@@ -4531,6 +4584,7 @@ def meshed_serving_phase(build_root: Path, seen: Counter, counts: dict) -> None:
 # ---------------------------------------------------------------------------
 
 MFU_MAX = 1.05  # an MFU or an HBM share above this is a counting error
+MFU_REPS = 3  # timed runs per executable in 23a and 23d (the tool's 8, cut for phase 26)
 SMALL = (32, 32)  # size and max_channels of the train steps counted on both devices
 # their battery: two of the six nets (the six cost ~70 s of a shared CPU)
 SMALL_LOSSES = ("expression_loss", "orientation_loss")
@@ -4600,11 +4654,122 @@ def mfu_train_phase(trainer, per_kind: dict) -> tuple[Counter, dict]:
         got, runs = counted_runs(exes)
         remove = install_launch_recorder(seen)
         try:
-            rows = tm.report(exes, True, "train", "cuda")
+            rows = tm.report(exes, True, "train", "cuda", MFU_REPS)
         finally:
             remove()
         check_mfu_rows(rows, got, runs, per_kind, counts)
     return seen, counts
+
+
+PLAN_RUNS = 3  # timed runs of each reg step under each plan (train(5) warmed both plans' kernels)
+PLANS = ("plain", "remat_reg")
+
+
+def memory_plan_phase(trainer, seen: Counter, counts: dict) -> None:
+    """Phase 26, on phase 7's trainer after phase 23a: ``d_reg_step`` and
+    ``g_reg_step`` under each memory plan (``TrainStepConfig.remat_reg``
+    off and on; ``train_mfu``'s inputs), each run from one saved state
+    (cuDNN's sums are not deterministic: ROADMAP Queue 3 item 12), the
+    plans alternated: the median ms of PLAN_RUNS runs between syncs, the
+    peak memory (``max_memory_allocated``, and above the step's start);
+    each plan's losses and gradients held to the other's at
+    TRAIN_PARITY_RTOL; each run's launches equal to
+    ``expected_step_counts`` under its plan (the recompute included). Then
+    one ``d_step`` and one ``g_step`` (the battery's) with G and D
+    rematerialised in every step (``model_config.remat``) beside the plain
+    ones, the same way; their gradients held at TRAIN_PARITY_RTOL, the
+    ``g_step``'s on the adversarial loss alone (two more runs). The
+    launches are added to ``seen`` and ``counts`` (phase 23's)."""
+    from gan_control_torch.ops import kernels
+    from gan_control_torch.tools import train_mfu as tm
+
+    st, g, d = trainer.state, trainer.state.generator, trainer.state.discriminator
+    n_groups = len(trainer.spec.groups)
+    snap = trainer._snapshot()
+    exes = {plan: tm.train_exes(st, dataclasses.replace(trainer.step_cfg, remat_reg=plan != "plain"),
+                                trainer.spec, trainer.attr_losses, trainer.predictors, trainer.augment_fn)
+            for plan in PLANS}
+
+    def run_once(exe, want: dict, label: str):
+        trainer._restore(copy.deepcopy(snap))  # the optimizers keep the tensors they load
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        metrics = exe.run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = kernels.launch_counts()
+        got = {n: after[n] - before[n] for n in after}
+        if got != want:
+            fail(f"memory plans: {label}: launches {got}, expected {want}")
+        add_counts(counts, got)
+        peak = torch.cuda.max_memory_allocated()
+        return ms, peak, peak - start, {k: float(v) for k, v in metrics.items()}
+
+    def grads(module) -> dict:
+        return {n: p.grad.detach().clone() for n, p in module.named_parameters() if p.grad is not None}
+
+    def held(label: str, a: tuple, b: tuple) -> None:
+        (ma, ga), (mb, gb) = a, b
+        if ma.keys() != mb.keys() or ga.keys() != gb.keys():
+            fail(f"memory plans: {label}: other metrics or gradients")
+        loss_err = max(abs(ma[k] - mb[k]) / max(1.0, abs(ma[k])) for k in ma)
+        worst, worst_name = worst_grad_err(ga, gb)
+        log(f"memory plans: {label} against plain: worst loss rel err {loss_err:.3g}, {len(ga)} gradients, "
+            f"worst rel err {worst:.3g} ({worst_name}), tol {TRAIN_PARITY_RTOL}")
+        if loss_err > TRAIN_PARITY_RTOL or worst > TRAIN_PARITY_RTOL:
+            fail(f"memory plans: {label} disagrees with the plain plan")
+
+    remove = install_launch_recorder(seen)
+    try:
+        with Phase("memory plans: reg steps (26)"):
+            want = {plan: expected_step_counts(g, d, n_groups, plan != "plain") for plan in PLANS}
+            got = {(k, p): [] for k in ("d_reg_step", "g_reg_step") for p in PLANS}
+            last = {}
+            for r in range(PLAN_RUNS):
+                for kind, module in (("d_reg_step", d), ("g_reg_step", g)):
+                    for plan in (PLANS if r % 2 == 0 else PLANS[::-1]):
+                        *row_, metrics = run_once(exes[plan][kind], want[plan][kind], f"{kind} {plan}")
+                        got[kind, plan].append(row_)
+                        last[kind, plan] = (metrics, grads(module))
+            for kind in ("d_reg_step", "g_reg_step"):
+                for plan in PLANS:
+                    ms = [t for t, _, _ in got[kind, plan]]
+                    peak = max(p for _, p, _ in got[kind, plan]) / 2**30
+                    own = max(o for _, _, o in got[kind, plan]) / 2**30
+                    log(f"memory plans: {kind} {plan}: median {statistics.median(ms):.2f} ms over {PLAN_RUNS} "
+                        f"({[round(t, 2) for t in ms]}); peak {peak:.3f} GiB, {own:.3f} GiB above the step's "
+                        f"start; launches per run {want[plan][kind]}")
+                held(f"{kind} remat_reg", last[kind, "remat_reg"], last[kind, "plain"])
+        with Phase("memory plans: remat in every step (26)"):
+            # the battery's image gradient is not deterministic on the card
+            # (two plain g_steps differ by ~1e-2 of a bias gradient's
+            # largest entry, PERF.md §6): the plans' g_step gradients are
+            # held on the adversarial loss alone, the battery's step timed
+            adversarial = tm.train_exes(st, trainer.step_cfg, trainer.spec, augment_fn=trainer.augment_fn)
+            for kind, module in (("d_step", d), ("g_step", g)):
+                out = {}
+                for plan in ("plain", "remat"):
+                    g.remat = d.remat = plan == "remat"
+                    try:
+                        per = expected_step_counts(g, d, n_groups, False)[kind]
+                        ms, peak, own, metrics = run_once(exes["plain"][kind], per, f"{kind} {plan}")
+                        if kind == "g_step":
+                            *_, metrics = run_once(adversarial[kind], per, f"adversarial {kind} {plan}")
+                    finally:
+                        g.remat = d.remat = False
+                    out[plan] = (metrics, grads(module))
+                    log(f"memory plans: {kind} with model_config.remat {plan == 'remat'}: {ms:.2f} ms; peak "
+                        f"{peak / 2**30:.3f} GiB, {own / 2**30:.3f} GiB above the step's start; launches {per}")
+                held(f"{kind} remat" + (" (the adversarial loss alone)" if kind == "g_step" else ""),
+                     out["remat"], out["plain"])
+    finally:
+        remove()
+        trainer._restore(snap)
+    del snap, exes
+    torch.cuda.empty_cache()
 
 
 def write_reference_root(root: Path) -> list[str]:
@@ -4780,7 +4945,7 @@ def measuring_finish(build_root: Path, started: dict, seen: Counter, counts: dic
         got, runs = counted_runs(exes)
         remove = install_launch_recorder(seen)
         try:
-            rows = tm.report(exes, True, "gen and phase2b", "cuda")
+            rows = tm.report(exes, True, "gen and phase2b", "cuda", MFU_REPS)
         finally:
             remove()
         check_mfu_rows(rows, got, runs, want, counts)
@@ -4834,7 +4999,7 @@ def measuring_finish(build_root: Path, started: dict, seen: Counter, counts: dic
 # ---------------------------------------------------------------------------
 
 INT8_ITERS = 2  # train(2) under int8 storage: iteration 0 runs all four steps
-SHARE_ROUNDS = 5  # battery_share's timed steps per leg
+SHARE_ROUNDS = 3  # battery_share's timed steps per leg (cut from 5 for phase 26)
 DEQUANT_GRAPH_MS = 2.0  # a few calls per captured graph: each writes a fresh 561 MB buffer
 LOADER_ARGS = ["--images", "32", "--batches", "4", "--workers", "4"]
 # 24d: the card's distance from a reference, as a multiple of the CPU's
@@ -4923,7 +5088,8 @@ def int8_train_phase(build_root: Path) -> tuple[Counter, dict, tuple, object]:
             kernel = dequant_kernel_check(battery)
 
         st = trainer.state
-        per_kind = expected_step_counts(st.generator, st.discriminator, len(trainer.spec.groups))
+        per_kind = expected_step_counts(st.generator, st.discriminator, len(trainer.spec.groups),
+                                        trainer.step_cfg.remat_reg)
         per_kind["g_step"] = dict(per_kind["g_step"], dequant_int8=1)
         q0, s0 = battery.q.clone(), battery.scales.clone()
         buffers, checked = [], []
@@ -5506,7 +5672,7 @@ def float16_train_phase(trainer) -> tuple[Counter, dict]:
                 f"batch-norm statistics from {F16_CALIBRATION_ROWS} G images; tensors past float16's range "
                 f"(stored as inf, as the JAX cast stores them): {overflowed or 'none'}")
 
-        per_kind = expected_step_counts(st.generator, st.discriminator, len(spec.groups))
+        per_kind = expected_step_counts(st.generator, st.discriminator, len(spec.groups), cfg.remat_reg)
         with Phase("float16 main path (25a)"):
             by_kind, restore = count_by_kind(gt)
             remove = install_launch_recorder(seen)

@@ -9,6 +9,13 @@ With ``verification`` the pyramid splits below ``verification_res_split``
 (``from_rgb``, ``block{i}``, ``adv_block{j}``, ``ver_block{j}``,
 ``adv_head``, ``ver_head``).
 
+``remat`` (the JAX module's ``remat`` field, off unless set, as
+``models/factory.py`` sets it from ``model_config.remat``): while autograd
+records, each ResBlock, the split tails' included, runs under
+``torch.utils.checkpoint`` and is recomputed in the backward instead of
+keeping its activations; under ``torch.no_grad`` it changes nothing. The D
+draws no random numbers, so the recompute is exact.
+
 The pyramid runs in ``dtype`` (bf16 under ``mixed_precision``; parameters
 stay f32); the logits and the embedding come back in f32.
 """
@@ -19,6 +26,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gan_control_torch.models.blocks import ConvLayer, EqualLinear, ResBlock, minibatch_stddev
 from gan_control_torch.models.generator import channel_table
@@ -62,6 +70,7 @@ class Discriminator(nn.Module):
         super().__init__()
         self.size = size
         self.dtype = dtype
+        self.remat = False  # see the module docstring
         self.verification = verification
         channels = channel_table(channel_multiplier, max_channels)
         res_split = size // 4 if verification_res_split is None else verification_res_split
@@ -93,14 +102,20 @@ class Discriminator(nn.Module):
                 self.add_module(f"ver_block{j}", ResBlock(cin, cout, blur_kernel, opad))
             self.ver_head = DiscriminatorHead(in_ch, channels[4], verification_dim)
 
+    def _block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        block = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, use_reentrant=False)
+        return block(x)
+
     def _tail(self, x: torch.Tensor, prefix: str) -> torch.Tensor:
         for j in range(self.n_split):
-            x = getattr(self, f"{prefix}_block{j}")(x)
+            x = self._block(f"{prefix}_block{j}", x)
         return getattr(self, f"{prefix}_head")(x).float()
 
     def forward(self, x: torch.Tensor):
         x = self.from_rgb(x.to(self.dtype))
         for i in range(self.n_blocks):
-            x = getattr(self, f"block{i}")(x)
+            x = self._block(f"block{i}", x)
         adv = self._tail(x, "adv")
         return adv, (self._tail(x, "ver") if self.verification else None)

@@ -38,7 +38,8 @@ def build_generator(
     one; like the JAX factory, this builds no VAE mapping
     (``Generator(vae=True)`` does). ``mixed_precision: true`` runs
     synthesis in bf16 (the mapping stays f32); ``dtype`` overrides the
-    synthesis type."""
+    synthesis type. ``model_config.remat`` sets :attr:`Generator.remat`
+    (each StyledConv recomputed in the backward)."""
     device = resolve_device(device)
     mc = config["model_config"]
     size = mc["size"]
@@ -61,6 +62,7 @@ def build_generator(
         noise_mode=mc.get("g_noise_mode", "normal"),
         dtype=dtype,
     )
+    model.remat = mc.get("remat", False)
     return init_params_(model, seed).to(device)
 
 
@@ -73,7 +75,9 @@ def build_discriminator(
     """The discriminator of ``config`` on ``device`` (CUDA unless asked
     otherwise), parameters drawn as the JAX initialisers draw them from
     ``seed``. ``mixed_precision: true`` runs the pyramid in bf16 (params
-    and logits stay f32); ``dtype`` overrides that."""
+    and logits stay f32); ``dtype`` overrides that. ``model_config.remat``
+    sets :attr:`Discriminator.remat` (each ResBlock recomputed in the
+    backward)."""
     device = resolve_device(device)
     mc = config["model_config"]
     size = mc["size"]
@@ -93,4 +97,5 @@ def build_discriminator(
         model_mode=model_mode,
         dtype=dtype,
     )
+    model.remat = mc.get("remat", False)
     return init_params_(model, seed).to(device)

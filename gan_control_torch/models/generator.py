@@ -26,8 +26,9 @@ StyledConv of ``convs`` runs under ``torch.utils.checkpoint`` and is
 recomputed in the backward instead of keeping its activations. A recompute
 restores the global RNG, not an explicit ``torch.Generator``, so with
 ``remat`` the injection noise of the whole synthesis is drawn before it
-(:meth:`Generator.draw_noise`, the draws of the layers in their order)
-and passed in.
+(:meth:`Generator.draw_noise`, the draws of the layers in their order;
+a 'zeros' layer draws none) and passed in, so that the generator is left
+where the layers without ``remat`` leave it.
 """
 
 from __future__ import annotations
@@ -293,17 +294,22 @@ class Generator(nn.Module):
         return shapes
 
     def draw_noise(self, batch: int, generator: torch.Generator | None = None,
-                   device: str | torch.device | None = None) -> list[torch.Tensor]:
+                   device: str | torch.device | None = None,
+                   *, as_layers_draw: bool = False) -> list[torch.Tensor | None]:
         """Per-layer injection noise ``[batch, H, W, 1]`` f32 on ``device``
         (the generator's by default), drawn from ``generator`` in layer
         order, as the layers of a 'normal' noise mode draw it when given
         none; inside ``collectives.sharded_batch`` at the global batch, of
-        which the rank keeps its rows."""
+        which the rank keeps its rows. With ``as_layers_draw`` a layer that
+        draws no noise (the 'zeros' mode's conv1 and upsampling convs) takes
+        no draw and gets None, so the draws are those of the layers."""
         src = generator.device if generator is not None else device
         device = src if device is None else device
         n, rows = collectives.global_batch(batch)
-        return [torch.randn(s, generator=generator, device=src)[rows].to(device)
-                for s in self.noise_shapes(n)]
+        draws = [not (as_layers_draw and getattr(c.noise, "zeros", False))
+                 for c in (self.conv1, *self.convs)]
+        return [torch.randn(s, generator=generator, device=src)[rows].to(device) if d else None
+                for s, d in zip(self.noise_shapes(n), draws)]
 
     def _styled_conv(self, k: int, x, style, noise, generator):
         conv = self.convs[k]
@@ -350,7 +356,7 @@ class Generator(nn.Module):
 
         if noise is None:
             if self.remat and torch.is_grad_enabled():
-                noise = self.draw_noise(latent.shape[0], generator, latent.device)
+                noise = self.draw_noise(latent.shape[0], generator, latent.device, as_layers_draw=True)
             else:
                 noise = [None] * self.num_layers
 

@@ -6,7 +6,9 @@ Runs N iterations of the phase-1 cadence (``d_step``, R1 every
 ``g_reg_every``) twice from the SAME initial parameters, real batch and
 latents: once with ``mixed_precision: true`` (the shipped plan: bf16 G and
 D compute, f32 parameters and reductions) and once in f32 with TF32 off
-(the battery at "highest"); and reports per-metric trajectory statistics.
+(the battery at "highest"); the reg steps run under the trainer's memory
+plan (``step_cfg.remat_reg``, on by default: G and D rematerialised); and
+reports per-metric trajectory statistics.
 GAN training is chaotic, so per-iteration values decorrelate after a few
 steps whatever the numerics; a healthy bf16 plan shows a first-iteration
 relative delta at bf16 rounding scale, no blow-up or NaN, and agreement of

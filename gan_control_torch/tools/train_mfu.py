@@ -23,8 +23,10 @@ mappings of 8 layers) unless ``--size``/``--max_channels`` cut it:
     at random init, as ``train_generator`` builds it), ``d_reg_step`` and
     ``g_reg_step`` at the path batch ``batch // path_batch_shrink``, on a
     ``GeneratorTrainer``'s state (batch 16, bf16 synthesis and D, the
-    synthetic loader's batch); cadence R1 every ``d_reg_every`` (16), path
-    length every ``g_reg_every`` (4);
+    synthetic loader's batch) and under its memory plan (the reg steps on
+    rematerialised G and D by default, their recompute counted, as XLA's
+    cost analysis counts the JAX clones'); cadence R1 every
+    ``d_reg_every`` (16), path length every ``g_reg_every`` (4);
   - ``gen``: the generator's forward at batch 128, bf16, fresh injection
     noise each call;
   - ``phase2b``: ``ControllerTrainer.train_step`` of the orientation head
@@ -114,7 +116,8 @@ def train_exes(state, cfg, spec, attr_losses=(), predictors=None, augment_fn=Non
     """The four train steps on ``state`` (a ``GANTrainState``, updated in
     place) with ``cfg`` (``TrainStepConfig``), the group ``spec`` and the
     battery: one real batch of the synthetic loader and fixed z from
-    ``seed``."""
+    ``seed``. The reg steps run under ``cfg.remat_reg``, a trainer's memory
+    plan when ``cfg`` is its ``step_cfg``."""
     from gan_control_torch.data.datasets import synthetic_data_loader
     from gan_control_torch.training import train_step as ts
 

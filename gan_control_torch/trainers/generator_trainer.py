@@ -13,6 +13,12 @@ each ``g_step`` takes a fresh placement from ``np.random.default_rng(seed +
 the mixing index and the path-length noise come from a ``torch.Generator``
 seeded with ``seed``.
 
+The memory plan, resolved as the JAX trainer resolves it:
+``model_config.remat`` rematerialises G's StyledConvs and D's ResBlocks in
+all four steps (the factory sets the modules' flags); otherwise the two
+regularizer steps alone run them rematerialised unless
+``model_config.remat_reg`` is false (``TrainStepConfig.remat_reg``).
+
 Real batches come from ``data_config`` (``data/datasets.get_data_loader``)
 unless a loader is injected; a thread takes them and, on the card, copies
 them from pinned memory while the steps run (``data/prefetch.py``).
@@ -125,6 +131,12 @@ _log = get_logger(__name__)
 STEP_KINDS = ("d_step", "d_reg_step", "g_step", "g_reg_step")
 
 
+def remat_reg_plan(model_config: Mapping[str, Any]) -> bool:
+    """Whether the reg steps alone run on rematerialised G and D: JAX's
+    ``mc.get("remat_reg", True) and not mc.get("remat", False)``."""
+    return bool(model_config.get("remat_reg", True)) and not model_config.get("remat", False)
+
+
 def mixing_noise(rng: np.random.Generator, batch: int, latent_dim: int, prob: float):
     """1 or 2 z arrays (style mixing with probability ``prob``), drawn on the
     host exactly as the JAX trainer draws them."""
@@ -209,7 +221,12 @@ class GeneratorTrainer:
                 not (mc.get("mixed_precision", False) and not mc.get("remat", False)),
             ),
             predictor_dtype=tc.get("predictor_dtype", "float32"),
+            # JAX's default memory plan, kept so that one JSON means one plan
+            # in both packages (what it costs and saves on the card: PERF.md §6)
+            remat_reg=remat_reg_plan(mc),
         )
+        _log.info("memory plan: remat %s (G and D in every step), remat_reg %s, remat_predictors %s",
+                  mc.get("remat", False), self.step_cfg.remat_reg, self.step_cfg.remat_predictors)
         self.attr_losses = tuple(attr_losses)
         self.predictors = cast_predictor_params(
             predictors if isinstance(predictors, Int8Battery) else dict(predictors or {}),

@@ -43,6 +43,16 @@ runs under ``torch.utils.checkpoint``, so the backward re-runs one net at a
 time instead of holding every net's activations. The predictors are frozen:
 their parameters take no gradient, the image does.
 
+The memory plan: with ``remat_reg`` the two regularizer steps run G and D
+with ``remat`` on (each StyledConv of G, each ResBlock of D recomputed in
+the backward: the same parameters and draws, another backward schedule, as
+the JAX steps run on ``generator.clone(remat=True)``) and put each module's
+flag back afterwards, also when the step raises; ``d_step`` and ``g_step``
+run the modules as they are set (``model_config.remat`` sets both in the
+factory). Under ``remat`` G draws its injection noise from ``state.rng``
+before the synthesis, in the layers' order, so the reg steps draw the same
+noise, mixing index and path-length noise under either plan.
+
 Each optimizer step gives a zero gradient to every parameter the loss did
 not reach, as optax updates every leaf, so all parameters share one Adam
 step count (the checkpoint's optax ``count``). R1 and the path length
@@ -153,6 +163,8 @@ class TrainStepConfig:
     # the battery's storage dtype: "float32" (the reference), "bfloat16",
     # "float16" or "int8" (dequantised to bf16 once per g_step)
     predictor_dtype: str = "float32"
+    # run d_reg_step and g_reg_step on rematerialised G and D
+    remat_reg: bool = False
 
     @property
     def num_mini(self) -> int:
@@ -227,12 +239,24 @@ def d_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
     return metrics
 
 
+@contextlib.contextmanager
+def _rematerialised(module: nn.Module, on: bool):
+    """``module.remat`` on inside the context when ``on``; afterwards, also
+    after an exception, the flag it had."""
+    before = module.remat
+    module.remat = before or on
+    try:
+        yield module
+    finally:
+        module.remat = before
+
+
 @collectives.sharded_batch()
 def d_reg_step(state: GANTrainState, cfg: TrainStepConfig, real_img: torch.Tensor) -> dict:
-    d = state.discriminator
-    r1 = r1_penalty(lambda x: d(x)[0], real_img)
-    state.d_opt.zero_grad(set_to_none=True)
-    (cfg.r1 / 2.0 * r1 * cfg.d_reg_every).backward()
+    with _rematerialised(state.discriminator, cfg.remat_reg) as d:
+        r1 = r1_penalty(lambda x: d(x)[0], real_img)
+        state.d_opt.zero_grad(set_to_none=True)
+        (cfg.r1 / 2.0 * r1 * cfg.d_reg_every).backward()
     optimizer_step(state.d_opt)
     return collectives.mean_metrics({"d_r1_loss": r1.detach()})
 
@@ -369,23 +393,24 @@ def g_reg_step(state: GANTrainState, cfg: TrainStepConfig, z_list: Sequence[torc
     if len(z_list) > 1 and inject_index is None:
         inject_index = int(torch.randint(1, g.n_latent, (), generator=state.rng,
                                          device=state.rng.device))
-    w_list = [g.map_latent(z) for z in z_list]
-    if len(w_list) > 1:
-        layer = torch.arange(g.n_latent, device=w_list[0].device)[None, :, None]
-        latent = torch.where(layer < inject_index, w_list[0][:, None, :], w_list[1][:, None, :])
-    else:
-        latent = w_list[0][:, None, :].expand(-1, g.n_latent, -1)
+    with _rematerialised(g, cfg.remat_reg):
+        w_list = [g.map_latent(z) for z in z_list]
+        if len(w_list) > 1:
+            layer = torch.arange(g.n_latent, device=w_list[0].device)[None, :, None]
+            latent = torch.where(layer < inject_index, w_list[0][:, None, :], w_list[1][:, None, :])
+        else:
+            latent = w_list[0][:, None, :].expand(-1, g.n_latent, -1)
 
-    def synth(lat):
-        img, _ = g([lat], input_is_latent=True, noise=noise, generator=state.rng)
-        # the path-length sum runs over ~1e7 terms: f32, whatever the synthesis type
-        return img.float()
+        def synth(lat):
+            img, _ = g([lat], input_is_latent=True, noise=noise, generator=state.rng)
+            # the path-length sum runs over ~1e7 terms: f32, whatever the synthesis type
+            return img.float()
 
-    penalty, new_mean, path_lengths = path_length_penalty(
-        synth, latent, path_noise, state.mean_path_length, generator=state.rng)
-    before = [p.detach().clone() for p in g.parameters()]
-    state.g_opt.zero_grad(set_to_none=True)
-    (cfg.path_regularize * cfg.g_reg_every * penalty).backward()
+        penalty, new_mean, path_lengths = path_length_penalty(
+            synth, latent, path_noise, state.mean_path_length, generator=state.rng)
+        before = [p.detach().clone() for p in g.parameters()]
+        state.g_opt.zero_grad(set_to_none=True)
+        (cfg.path_regularize * cfg.g_reg_every * penalty).backward()
     optimizer_step(state.g_opt)
     one_minus_d = 1.0 - ema_decay(cfg.batch, cfg.g_moving_average)
     with torch.no_grad():

@@ -274,7 +274,8 @@ mods = [m.name for m in pkgutil.walk_packages(gan_control_torch.__path__, "gan_c
 for name in mods:
     importlib.import_module(name)
 # tools/ is not a package
-for tool in ("serving_bench", "convergence", "control_fidelity", "numerics_ab", "collective_scaling"):
+for tool in ("serving_bench", "convergence", "control_fidelity", "numerics_ab", "collective_scaling",
+             "memory_plan"):
     importlib.import_module(f"gan_control_torch.tools.{tool}")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "gan_control_tpu"))
