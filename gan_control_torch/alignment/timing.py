@@ -1,6 +1,8 @@
 """Per-stage times of the alignment pipeline: host milliseconds from the
 host clock and, on a CUDA device, the device milliseconds between two CUDA
-events around each stage. A timer made with no device records nothing."""
+events around each stage. A timer made with no device records nothing.
+Each stage is also a span of its name (``utils/tracing.py``), so the stages
+show in a ``torch.profiler`` trace."""
 
 from __future__ import annotations
 
@@ -9,6 +11,8 @@ import time
 from collections import defaultdict
 
 import torch
+
+from gan_control_torch.utils import tracing
 
 
 class StageTimer:
@@ -22,20 +26,21 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        if not self.enabled:
-            yield
-            return
-        if self.cuda:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.host_ms[name] += (time.perf_counter() - t0) * 1e3
+        with tracing.span(name):
+            if not self.enabled:
+                yield
+                return
             if self.cuda:
-                end.record()
-                self._events[name].append((start, end))
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.host_ms[name] += (time.perf_counter() - t0) * 1e3
+                if self.cuda:
+                    end.record()
+                    self._events[name].append((start, end))
 
     def reset(self) -> None:
         """Forget the times and counts recorded so far (say, a first batch's

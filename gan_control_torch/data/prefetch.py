@@ -11,6 +11,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from gan_control_torch.utils import tracing
+
 
 class DeviceFeeder:
     """Batches of ``loader`` (NHWC numpy arrays) as tensors on ``device``,
@@ -62,15 +64,17 @@ class DeviceFeeder:
             self._put(e)
 
     def next(self) -> torch.Tensor:
-        item = self._queue.get()
-        if isinstance(item, BaseException):
-            raise item
-        batch, pinned, copied = item
-        if pinned is not None:
-            self._in_flight.append((pinned, copied))
-        while self._in_flight and self._in_flight[0][1].query():
-            self._in_flight.popleft()
-        return batch
+        """The next batch (the span ``feed``)."""
+        with tracing.span("feed"):
+            item = self._queue.get()
+            if isinstance(item, BaseException):
+                raise item
+            batch, pinned, copied = item
+            if pinned is not None:
+                self._in_flight.append((pinned, copied))
+            while self._in_flight and self._in_flight[0][1].query():
+                self._in_flight.popleft()
+            return batch
 
     def close(self) -> bool:
         """Stop the thread (it may finish the batch it is taking). Returns

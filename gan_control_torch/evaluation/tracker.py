@@ -9,9 +9,10 @@
     source of truth), ``monitor.csv`` with ``csv_monitor`` (its header the
     union of every key seen, the file rewritten when a key appears), and
     TensorBoard scalars where ``torch.utils.tensorboard`` imports (without
-    the ``tensorboard`` package: one warning, then JSONL only);
-  - ``start_profile``/``stop_profile``: a ``torch.profiler`` trace into
-    ``<save_dir>/profile``.
+    the ``tensorboard`` package: one warning, then JSONL only).
+
+An operator's own ``torch.profiler`` records the program's spans
+(``utils/tracing.py``) in its Chrome trace.
 """
 
 from __future__ import annotations
@@ -45,7 +46,6 @@ class Tracker:
         self.fid_history: list[tuple[int, float]] = []
         self.best_fid = float("inf")
         self._writer = None
-        self._profiler = None
         if tensorboard and self.save_dir is not None:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -53,33 +53,6 @@ class Tracker:
                 self._writer = SummaryWriter(log_dir=str(self.save_dir / "tensorboard"))
             except ImportError:
                 _log.warning("tensorboard unavailable; JSONL metrics only")
-
-    # -- profiling ---------------------------------------------------------
-
-    def start_profile(self) -> None:
-        """Begin a ``torch.profiler`` trace (CPU, and CUDA where present)."""
-        import torch
-
-        if self.save_dir is None:
-            return
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        self._profiler = torch.profiler.profile(activities=activities)
-        self._profiler.start()
-
-    def stop_profile(self) -> Path | None:
-        """End the trace; write it as ``<save_dir>/profile/trace_<time>.json``
-        (Chrome trace format) and return the path."""
-        if self._profiler is None:
-            return None
-        prof, self._profiler = self._profiler, None
-        prof.stop()
-        out = self.save_dir / "profile"
-        out.mkdir(parents=True, exist_ok=True)
-        path = out / f"trace_{time.time_ns()}.json"
-        prof.export_chrome_trace(str(path))
-        return path
 
     # -- timing --------------------------------------------------------------
 

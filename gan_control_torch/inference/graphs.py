@@ -4,6 +4,12 @@ the live ``ServingController`` and the model-code-free ``ExportedServing``,
 so it imports only torch, numpy and the kernels module (for the launch
 counts of a capture).
 
+Spans (``utils/tracing.py``, while a ``torch.profiler`` records), each with
+the request's rows and the bucket: ``prepare`` (the buffer fills),
+``replay`` (the graph's replay, or the eager call on the CPU; while tracing
+it ends once the stream has synchronised, so the copy after it is the copy
+alone) and ``copy_out`` (the copies to the host).
+
 A request is ``fn(latent, controls, seed) -> (images, w)`` with
 ``latent`` ``[bucket, ...]`` float32, ``controls`` ``{group: [bucket, d]}``
 float32 and ``seed`` a one-element int64 tensor. :class:`BucketGraph`
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from gan_control_torch.ops import kernels
+from gan_control_torch.utils import tracing
 
 
 def request_rows(batch_size: int | None, latent, controls: dict) -> int:
@@ -141,17 +148,21 @@ class BucketGraph:
         for g, v in controls.items():
             if len(v) != n:
                 raise ValueError(f"control '{g}' has {len(v)} rows for a batch of {n}")
-        _fill(self.latent, latent)
-        for g, v in controls.items():
-            _fill(self.controls[g], torch.from_numpy(v))
-        self.seed.copy_(seed.reshape(1))
-        if self.graph is None:
-            with torch.no_grad():
-                img, w = self.fn(self.latent, self.controls, self.seed)
-        else:
-            with torch.cuda.device(self.device):
-                self.graph.replay()
-            img, w = self.outputs
+        with tracing.span("prepare", rows=n, bucket=self.bucket):
+            _fill(self.latent, latent)
+            for g, v in controls.items():
+                _fill(self.controls[g], torch.from_numpy(v))
+            self.seed.copy_(seed.reshape(1))
+        with tracing.span("replay", rows=n, bucket=self.bucket):
+            if self.graph is None:
+                with torch.no_grad():
+                    img, w = self.fn(self.latent, self.controls, self.seed)
+            else:
+                with torch.cuda.device(self.device):
+                    self.graph.replay()
+                    if tracing.enabled():
+                        torch.cuda.current_stream().synchronize()
+                img, w = self.outputs
         return img[:n], w[:n]
 
     def __call__(self, latent: torch.Tensor, controls: dict[str, np.ndarray],
@@ -160,7 +171,8 @@ class BucketGraph:
         as numpy on the host (copied out before the next request can
         overwrite the outputs)."""
         img, w = self.launch(latent, controls, seed)
-        return img.cpu().numpy(), latent.cpu().numpy(), w.cpu().numpy()
+        with tracing.span("copy_out", rows=len(latent), bucket=self.bucket):
+            return img.cpu().numpy(), latent.cpu().numpy(), w.cpu().numpy()
 
 
 class ReplicatedGraphs:
@@ -188,8 +200,9 @@ class ReplicatedGraphs:
                 break  # only padding rows left
             outs.append((rows, replica.launch(latent[rows], {g: v[rows] for g, v in controls.items()}, seed)))
         # each replica's rows copied into their place in one host array
-        img, w = (torch.empty((n, *t.shape[1:]), dtype=t.dtype) for t in outs[0][1])
-        for rows, (r_img, r_w) in outs:
-            img[rows].copy_(r_img)
-            w[rows].copy_(r_w)
-        return img.numpy(), latent.cpu().numpy(), w.numpy()
+        with tracing.span("copy_out", rows=n, bucket=self.bucket):
+            img, w = (torch.empty((n, *t.shape[1:]), dtype=t.dtype) for t in outs[0][1])
+            for rows, (r_img, r_w) in outs:
+                img[rows].copy_(r_img)
+                w[rows].copy_(r_w)
+            return img.numpy(), latent.cpu().numpy(), w.numpy()

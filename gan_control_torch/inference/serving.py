@@ -34,6 +34,14 @@ meshed request returns the one-device images. Every replica's replay is
 launched before any output is copied to the host (``inference/graphs.py``
 ``ReplicatedGraphs``).
 
+Spans (``utils/tracing.py``, while a ``torch.profiler`` records): each
+``generate`` call is a ``request`` with its own id, the rows asked for and
+the bucket; inside it ``prepare`` (routing, the latent and seed, the entry
+lookup), then ``BucketGraph``'s ``prepare``, ``replay`` and ``copy_out``
+(``inference/graphs.py``). The counter ``graph_captures`` counts the graphs
+that ``_entry`` captures while tracing: after ``warmup``, graphs built
+under traffic.
+
 ``export_artifacts`` writes each request module as a ``torch.export``
 program with its parameters and noise planes inside (the one-device
 programs, also under a mesh), and ``load_exported_serving``
@@ -60,6 +68,7 @@ from gan_control_torch.inference.graphs import (
 )
 from gan_control_torch.inference.row_noise import row_noise
 from gan_control_torch.latent.groups import insert_group_latent
+from gan_control_torch.utils import tracing
 from gan_control_torch.utils.logging_utils import get_logger
 
 _log = get_logger(__name__)
@@ -156,6 +165,8 @@ class ServingController(Controller):
         super().__init__(controller_dir, device=device, dtype=dtype)
         self.buckets = buckets
         self._serve_cache: dict[tuple, BucketGraph | ReplicatedGraphs] = {}
+        # the id of the last request's span
+        self._request_id = 0
         self._pool = None
         # per mesh device other than this controller's: (G, heads, noise planes)
         self._copies: dict[torch.device, tuple] = {}
@@ -260,6 +271,7 @@ class ServingController(Controller):
                                                 self._pools[k]))
                 entry = ReplicatedGraphs(replicas)
             if entry.capture_seconds:
+                tracing.count("graph_captures")
                 _log.info("serving: captured %s in %.2f s, launches %s", key,
                           entry.capture_seconds, entry.launches)
             self._serve_cache[key] = entry
@@ -287,17 +299,23 @@ class ServingController(Controller):
         graph: a quarter of the bytes to copy to the host)."""
         if output not in OUTPUTS:
             raise ValueError(f"output must be 'float32' or 'uint8', got {output!r}")
-        routed = self._route(controls)
-        values = {g: v for g, (_, v) in routed.items()}
-        n = request_rows(batch_size, latent, values)
-        if latent is None and input_is_latent:
-            raise ValueError("input_is_latent=True requires `latent`")
-        latent = request_latent(latent, n, self.style_dim, generator, self.device)
-        seed = draw_seed(generator, self.device)
-        heads = tuple(sorted((g, h) for g, (h, _) in routed.items()))
-        key = (heads, input_is_latent, static_noise, output, self.bucket_for(n), tuple(latent.shape[1:]))
-        entry = self._entry(key, {g: v.shape[-1] for g, v in values.items()})
-        return entry(latent, values, seed)
+        self._request_id += 1
+        with tracing.span("request", id=self._request_id) as request:
+            with tracing.span("prepare") as prepare:
+                routed = self._route(controls)
+                values = {g: v for g, (_, v) in routed.items()}
+                n = request_rows(batch_size, latent, values)
+                if latent is None and input_is_latent:
+                    raise ValueError("input_is_latent=True requires `latent`")
+                latent = request_latent(latent, n, self.style_dim, generator, self.device)
+                seed = draw_seed(generator, self.device)
+                heads = tuple(sorted((g, h) for g, (h, _) in routed.items()))
+                bucket = self.bucket_for(n)
+                key = (heads, input_is_latent, static_noise, output, bucket, tuple(latent.shape[1:]))
+                entry = self._entry(key, {g: v.shape[-1] for g, v in values.items()})
+                prepare.set(rows=n, bucket=bucket)
+            request.set(rows=n, bucket=bucket)
+            return entry(latent, values, seed)
 
     def _default_group_sets(self) -> list[dict[str, int]]:
         """Group sets worth capturing and exporting, as {group: control dim}

@@ -34,7 +34,11 @@ predictions to ``images/<kind>_matrix``.
 
 Metrics go through the ``Tracker`` (``metrics.jsonl``; ``monitor.csv`` with
 ``monitor_config``; TensorBoard with ``tensorboard_config``) every
-``log_every`` iterations. ``evaluation_config`` runs on the JAX trainer's
+``log_every`` iterations. Under a ``torch.profiler`` each step kind runs
+inside its span (``d_step``, ``d_reg_step``, ``g_step``, ``g_reg_step``;
+``utils/tracing.py``) with the iteration as its id, and the steps' spans
+nest under it; ``profile_steps`` times the same spans between device syncs
+into ``step_times``. ``evaluation_config`` runs on the JAX trainer's
 cadence (:meth:`GeneratorTrainer._eval_due`): FID against a statistics
 pickle (``best_fid.ckpt`` on a best or tied FID), separability with the
 closest-impostor "bucket" images, and the orientation histogram and the
@@ -112,7 +116,7 @@ from gan_control_torch.training.train_step import (
     g_step,
 )
 from gan_control_torch.utils import checkpoint as ckpt_lib
-from gan_control_torch.utils import collectives
+from gan_control_torch.utils import collectives, tracing
 from gan_control_torch.utils.config import (
     add_weight_to_name,
     config_checks,
@@ -325,17 +329,21 @@ class GeneratorTrainer:
         if close is not None:
             close()
 
-    def _run(self, kind: str, fn, *args, **kwargs) -> dict:
-        if not self.profile_steps:
-            return fn(*args, **kwargs)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.step_times[kind].append((time.perf_counter() - t0) * 1e3)
-        return out
+    def _run(self, kind: str, i: int, fn, *args, **kwargs) -> dict:
+        """``fn(*args, **kwargs)`` inside the span ``kind`` of iteration
+        ``i``; with ``profile_steps`` also timed between two device syncs
+        into ``step_times``."""
+        with tracing.span(kind, id=i):
+            if not self.profile_steps:
+                return fn(*args, **kwargs)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.step_times[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
 
     def one_iteration(self, i: int, real: torch.Tensor | None = None) -> dict:
         """D update (+R1), G update (+path length), EMA, on ``real`` or the
@@ -346,24 +354,24 @@ class GeneratorTrainer:
         if real is None:
             real = self.next_real()
         if i % tc.get("d_every", 1) == 0:
-            metrics.update(self._run("d_step", d_step, state, cfg, self.spec, real,
+            metrics.update(self._run("d_step", i, d_step, state, cfg, self.spec, real,
                                      self._sample_z(tc["batch"]), augment_fn=self.augment_fn))
         if i % tc.get("d_reg_every", 16) == 0:
-            metrics.update(self._run("d_reg_step", d_reg_step, state, cfg, real))
+            metrics.update(self._run("d_reg_step", i, d_reg_step, state, cfg, real))
         if self._arrangement_rng is not None:
             arrangement = random_arrangement(self.spec, self._arrangement_rng)
             z = self._host_rng.standard_normal((tc["batch"], cfg.style_dim)).astype(np.float32)
-            metrics.update(self._run("g_step", g_step, state, cfg, self.spec,
+            metrics.update(self._run("g_step", i, g_step, state, cfg, self.spec,
                                      (self._to_device(z[collectives.rows_of_rank(len(z))]),),
                                      attr_losses=self.attr_losses, predictors=self.predictors,
                                      arrangement=arrangement, augment_fn=self.augment_fn))
         else:
-            metrics.update(self._run("g_step", g_step, state, cfg, self.spec,
+            metrics.update(self._run("g_step", i, g_step, state, cfg, self.spec,
                                      self._sample_z(tc["batch"]), attr_losses=self.attr_losses,
                                      predictors=self.predictors, augment_fn=self.augment_fn))
         if i % tc.get("g_reg_every", 4) == 0:
             path_batch = max(cfg.batch // max(cfg.path_batch_shrink, 1), 1)
-            metrics.update(self._run("g_reg_step", g_reg_step, state, cfg,
+            metrics.update(self._run("g_reg_step", i, g_reg_step, state, cfg,
                                      self._sample_z(path_batch)))
         return metrics
 

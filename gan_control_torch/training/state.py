@@ -18,7 +18,7 @@ from typing import Iterable
 import torch
 from torch import nn
 
-from gan_control_torch.utils import collectives
+from gan_control_torch.utils import collectives, tracing
 
 
 def reg_adam(params: Iterable[torch.Tensor], lr: float, reg_every: int,
@@ -46,12 +46,13 @@ def optimizer_step(opt: torch.optim.Optimizer) -> None:
     such a parameter does not move; its second moment decays). Under a
     process group the gradients are first averaged over ranks
     (``utils.collectives.mean_grads_``)."""
-    params = [p for group in opt.param_groups for p in group["params"]]
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    collectives.mean_grads_(params)
-    opt.step()
+    with tracing.span("optimizer"):
+        params = [p for group in opt.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        collectives.mean_grads_(params)
+        opt.step()
 
 
 @dataclasses.dataclass

@@ -58,6 +58,16 @@ not reach, as optax updates every leaf, so all parameters share one Adam
 step count (the checkpoint's optax ``count``). R1 and the path length
 never augment, as the reference's regularisation steps do not.
 
+Spans (``utils/tracing.py``, recorded while a ``torch.profiler`` runs):
+``synthesis`` (each G synthesis), ``discriminator`` (each D forward),
+``ada`` (each ``augment_fn`` call), ``battery`` (the whole
+``_attr_losses_for_batch`` call) and ``battery.<loss or share_key>`` (each
+net's forward, inside the function that ``checkpoint`` runs, so that the
+recompute in the backward opens it again, under ``backward``),
+``backward`` (each ``.backward()``), ``optimizer`` (``state.py``) and
+``ema`` (the EMA update; in ``g_reg_step`` the parameters' copy before the
+step and the delta after it).
+
 ``augment_fn`` has the JAX hook's signature, ``(images, p, generator) ->
 images`` (``training.ada.augment``), its draws from ``state.rng``.
 
@@ -107,7 +117,7 @@ from gan_control_torch.training.gan_losses import (
 )
 from gan_control_torch.training.ada import ada_p_update
 from gan_control_torch.training.state import GANTrainState, ema_decay, ema_update, optimizer_step
-from gan_control_torch.utils import collectives
+from gan_control_torch.utils import collectives, tracing
 from gan_control_torch.utils.precision import battery_dtype
 
 
@@ -208,22 +218,42 @@ def _gen_images(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | No
 AugmentFn = Callable[[torch.Tensor, torch.Tensor, torch.Generator], torch.Tensor]
 
 
+def _synthesis(*args, **kwargs):
+    with tracing.span("synthesis"):
+        return _gen_images(*args, **kwargs)
+
+
+def _discriminator(d: nn.Module, img: torch.Tensor):
+    with tracing.span("discriminator"):
+        return d(img)
+
+
+def _augment(augment_fn: AugmentFn, img: torch.Tensor, state: GANTrainState) -> torch.Tensor:
+    with tracing.span("ada"):
+        return augment_fn(img, state.ada_p, state.rng)
+
+
+def _backward(loss: torch.Tensor) -> None:
+    with tracing.span(tracing.BACKWARD):
+        loss.backward()
+
+
 @collectives.sharded_batch()
 def d_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
            real_img: torch.Tensor, z_list: Sequence[torch.Tensor], *,
            noise=None, inject_index: int | None = None,
            augment_fn: AugmentFn | None = None) -> dict:
     with torch.no_grad():
-        fake_img, _ = _gen_images(state, cfg, spec, z_list, noise, inject_index, arrange=False)
+        fake_img, _ = _synthesis(state, cfg, spec, z_list, noise, inject_index, arrange=False)
         if augment_fn is not None:
-            fake_img = augment_fn(fake_img, state.ada_p, state.rng)
-            real_img = augment_fn(real_img, state.ada_p, state.rng)
+            fake_img = _augment(augment_fn, fake_img, state)
+            real_img = _augment(augment_fn, real_img, state)
     d = state.discriminator
-    fake_pred, _ = d(fake_img)
-    real_pred, _ = d(real_img)
+    fake_pred, _ = _discriminator(d, fake_img)
+    real_pred, _ = _discriminator(d, real_img)
     loss = d_logistic_loss(real_pred, fake_pred)
     state.d_opt.zero_grad(set_to_none=True)
-    (loss * (cfg.num_mini / cfg.mini_batch)).backward()
+    _backward(loss * (cfg.num_mini / cfg.mini_batch))
     optimizer_step(state.d_opt)
     metrics = collectives.mean_metrics({
         "d_loss": loss.detach(),
@@ -254,9 +284,9 @@ def _rematerialised(module: nn.Module, on: bool):
 @collectives.sharded_batch()
 def d_reg_step(state: GANTrainState, cfg: TrainStepConfig, real_img: torch.Tensor) -> dict:
     with _rematerialised(state.discriminator, cfg.remat_reg) as d:
-        r1 = r1_penalty(lambda x: d(x)[0], real_img)
+        r1 = r1_penalty(lambda x: _discriminator(d, x)[0], real_img)
         state.d_opt.zero_grad(set_to_none=True)
-        (cfg.r1 / 2.0 * r1 * cfg.d_reg_every).backward()
+        _backward(cfg.r1 / 2.0 * r1 * cfg.d_reg_every)
     optimizer_step(state.d_opt)
     return collectives.mean_metrics({"d_r1_loss": r1.detach()})
 
@@ -325,10 +355,19 @@ def _attr_losses_for_batch(
     def run(fn, *args):
         return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
+    def net(name, fn):
+        # the span opens inside the function that checkpoint runs, so that
+        # its recompute in the backward opens it again
+        def forward(*args):
+            with tracing.span(f"battery.{name}"):
+                return fn(*args)
+        return forward
+
     shared: dict[str, Any] = {}
     for al in attr_losses:
         if al.share_key is not None and al.share_key not in shared:
-            shared[al.share_key] = run(al.shared_forward_fn, predictors[al.name], images)
+            shared[al.share_key] = run(net(al.share_key, al.shared_forward_fn), predictors[al.name],
+                                       images)
 
     total = torch.zeros((), dtype=torch.float32, device=images.device)
     metrics = {}
@@ -338,10 +377,11 @@ def _attr_losses_for_batch(
         elif collectives.sharded():
             # the gather stays outside the checkpoint, whose recompute in
             # the backward would issue it again
-            loss_al = chunked_contrastive(run(al.feature_fn, predictors[al.name], images), al)
+            loss_al = chunked_contrastive(run(net(al.name, al.feature_fn), predictors[al.name],
+                                              images), al)
         else:
-            loss_al = run(lambda pp, imgs, al=al: chunked_contrastive(al.feature_fn(pp, imgs), al),
-                          predictors[al.name], images)
+            loss_al = run(lambda pp, imgs, al=al: chunked_contrastive(
+                net(al.name, al.feature_fn)(pp, imgs), al), predictors[al.name], images)
         metrics[f"g_{al.name}"] = loss_al
         total = total + loss_al
     return total, metrics
@@ -364,22 +404,24 @@ def g_step(state: GANTrainState, cfg: TrainStepConfig, spec: GroupSpec | None,
     if arrangement is not None:
         arrangement = arrangement.to(next(state.generator.parameters()).device)
     with _frozen(state.discriminator):
-        img, _ = _gen_images(state, cfg, spec, z_list, noise, inject_index, arrange=True,
-                             arrangement=arrangement)
-        d_in = img if augment_fn is None else augment_fn(img, state.ada_p, state.rng)
-        fake_pred, _ = state.discriminator(d_in)
+        img, _ = _synthesis(state, cfg, spec, z_list, noise, inject_index, arrange=True,
+                            arrangement=arrangement)
+        d_in = img if augment_fn is None else _augment(augment_fn, img, state)
+        fake_pred, _ = _discriminator(state.discriminator, d_in)
         adv = g_nonsaturating_loss(fake_pred)
         total, metrics = adv, {"g_adv_loss": adv.detach()}
         if attr_losses:
-            attr_total, attr_metrics = _attr_losses_for_batch(
-                attr_losses, spec, predictors, img, cfg.num_mini, remat=cfg.remat_predictors,
-                dtype=battery_dtype(cfg.predictor_dtype), arrangement=arrangement)
+            with tracing.span("battery"):
+                attr_total, attr_metrics = _attr_losses_for_batch(
+                    attr_losses, spec, predictors, img, cfg.num_mini, remat=cfg.remat_predictors,
+                    dtype=battery_dtype(cfg.predictor_dtype), arrangement=arrangement)
             total = total + attr_total
             metrics.update({k: v.detach() for k, v in attr_metrics.items()})
         state.g_opt.zero_grad(set_to_none=True)
-        total.backward()
+        _backward(total)
     optimizer_step(state.g_opt)
-    ema_update(state.g_ema, state.generator, ema_decay(cfg.batch, cfg.g_moving_average))
+    with tracing.span("ema"):
+        ema_update(state.g_ema, state.generator, ema_decay(cfg.batch, cfg.g_moving_average))
     state.step += 1
     metrics["g_loss"] = total.detach()
     return collectives.mean_metrics(metrics)
@@ -402,18 +444,20 @@ def g_reg_step(state: GANTrainState, cfg: TrainStepConfig, z_list: Sequence[torc
             latent = w_list[0][:, None, :].expand(-1, g.n_latent, -1)
 
         def synth(lat):
-            img, _ = g([lat], input_is_latent=True, noise=noise, generator=state.rng)
+            with tracing.span("synthesis"):
+                img, _ = g([lat], input_is_latent=True, noise=noise, generator=state.rng)
             # the path-length sum runs over ~1e7 terms: f32, whatever the synthesis type
             return img.float()
 
         penalty, new_mean, path_lengths = path_length_penalty(
             synth, latent, path_noise, state.mean_path_length, generator=state.rng)
-        before = [p.detach().clone() for p in g.parameters()]
+        with tracing.span("ema"):
+            before = [p.detach().clone() for p in g.parameters()]
         state.g_opt.zero_grad(set_to_none=True)
-        (cfg.path_regularize * cfg.g_reg_every * penalty).backward()
+        _backward(cfg.path_regularize * cfg.g_reg_every * penalty)
     optimizer_step(state.g_opt)
     one_minus_d = 1.0 - ema_decay(cfg.batch, cfg.g_moving_average)
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("ema"):
         for e, p, p_old in zip(state.g_ema.parameters(), g.parameters(), before):
             e.add_(p - p_old, alpha=one_minus_d)
     state.mean_path_length = new_mean

@@ -421,10 +421,6 @@ def test_tracker_writes_what_the_jax_tracker_writes(tmp_path):
                                   np.asarray(__import__("PIL.Image").Image.open(j_out[-1])))
     port.close()
     assert list((dirs["port"] / "tensorboard").glob("events.out.tfevents.*"))
-    port.start_profile()
-    torch.ones(8).sum()
-    trace = port.stop_profile()
-    assert trace.parent == dirs["port"] / "profile" and trace.stat().st_size > 0
 
 
 # ---------------------------------------------------------------------------
