@@ -1014,7 +1014,11 @@ def battery_timing(trainer, g_step_ms: float) -> None:
     mini-batch chunks) and the backward to the images, between CUDA events,
     median of a few calls; the recon sub-losses share one R-Net forward, so
     they are timed together. Then the whole battery against the median
-    ``g_step``."""
+    ``g_step``. Where the battery's CUDA graph engages
+    (``losses/battery_graph.py``), every call after the first two replays
+    it: the "forward" is then the replay of the forward and the image
+    gradient, the "backward" the one multiply that hands that gradient
+    on."""
     from gan_control_torch.training import train_step as ts
     from gan_control_torch.utils.precision import battery_compute_dtype, battery_dtype
 

@@ -102,11 +102,13 @@ def not_same_pair_mask(num_same_pairs: int, num_other_pairs: int, n: int) -> np.
     return m & strict_lower_mask(n)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _pull_push_masks(n_same: int, n_not: int, focus: str, device: torch.device):
     """(pull mask, its count, push mask, its count) for one layer's focus,
     on ``device``. Cached: a step reads them without a host-to-device copy
-    after the first."""
+    after the first. Unbounded: a captured battery
+    (``losses/battery_graph.py``) reads these masks at every replay without
+    holding them, so no entry may be evicted."""
     n = n_same + n_not
     valid = strict_lower_mask(n)
     if focus == "same_as_last_layer":

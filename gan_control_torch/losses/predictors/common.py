@@ -18,6 +18,7 @@ over them.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -270,6 +271,16 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _channel_const(values: tuple[float, ...], device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``values`` (float32) as a [1, C, 1, 1] tensor of ``dtype`` on
+    ``device``. Cached: a step reads it without a host-to-device copy after
+    the first, so a CUDA graph can capture the step. Unbounded: a captured
+    battery (``losses/battery_graph.py``) reads these tensors at every
+    replay without holding them, so no entry may be evicted."""
+    return torch.as_tensor(np.asarray(values, np.float32), device=device).to(dtype).view(1, -1, 1, 1)
+
+
 def normalize_channels(x: torch.Tensor, mean, std=None) -> torch.Tensor:
     """(x - mean) / std per channel of an NCHW tensor, computed in at least
     f32 (the JAX package subtracts f32 numpy constants, which promotes bf16
@@ -277,7 +288,7 @@ def normalize_channels(x: torch.Tensor, mean, std=None) -> torch.Tensor:
     dtype = torch.promote_types(x.dtype, torch.float32)
 
     def const(v):
-        return torch.as_tensor(np.asarray(v, np.float32), device=x.device).to(dtype).view(1, -1, 1, 1)
+        return _channel_const(tuple(np.asarray(v, np.float32).ravel().tolist()), x.device, dtype)
 
     y = x.to(dtype) - const(mean)
     return y if std is None else y / const(std)

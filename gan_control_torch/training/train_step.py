@@ -41,7 +41,9 @@ the mean over the chunks. Specs with one ``share_key`` (the recon-3d sub-losses)
 read one forward of their shared net. With ``remat_predictors`` each loss
 runs under ``torch.utils.checkpoint``, so the backward re-runs one net at a
 time instead of holding every net's activations. The predictors are frozen:
-their parameters take no gradient, the image does.
+their parameters take no gradient, the image does. On CUDA, without
+remat, an arrangement or data parallelism, the battery's forward, criterion
+and image gradient replay from one CUDA graph (``losses/battery_graph.py``).
 
 The memory plan: with ``remat_reg`` the two regularizer steps run G and D
 with ``remat`` on (each StyledConv of G, each ResBlock of D recomputed in
@@ -63,7 +65,9 @@ Spans (``utils/tracing.py``, recorded while a ``torch.profiler`` runs):
 ``ada`` (each ``augment_fn`` call), ``battery`` (the whole
 ``_attr_losses_for_batch`` call) and ``battery.<loss or share_key>`` (each
 net's forward, inside the function that ``checkpoint`` runs, so that the
-recompute in the backward opens it again, under ``backward``),
+recompute in the backward opens it again, under ``backward``; on the eager
+path and at a capture only, not inside a replay of the battery's CUDA
+graph, ``losses/battery_graph.py``),
 ``backward`` (each ``.backward()``), ``optimizer`` (``state.py``) and
 ``ema`` (the EMA update; in ``g_reg_step`` the parameters' copy before the
 step and the delta after it).
@@ -103,6 +107,7 @@ from gan_control_torch.latent.groups import (
     re_arrange_z,
     same_not_same_split,
 )
+from gan_control_torch.losses import battery_graph
 from gan_control_torch.losses.contrastive import (
     ContrastiveConfig,
     contrastive_loss,
@@ -323,12 +328,34 @@ def _attr_losses_for_batch(
     images run in bf16.
     The criterion reads the features of the global batch: inside
     ``collectives.sharded_batch`` each layer it weighs is gathered over the
-    ranks (a layer of weight 0, which it skips, stands in as zeros)."""
+    ranks (a layer of weight 0, which it skips, stands in as zeros).
+    Where ``losses.battery_graph.engages`` (on CUDA, a float storage, no
+    ``remat``, no ``arrangement``, one process), the battery runs from its
+    CUDA graph from its third call on: the same losses, their metrics
+    without a gradient."""
     if dtype == torch.int8:
         if not isinstance(predictors, Int8Battery):
             raise TypeError("int8 storage runs on the battery of cast_predictor_params(predictors, 'int8')")
         predictors = predictors.nets(torch.bfloat16)
     images = images.to(torch.bfloat16 if dtype == torch.int8 else dtype)
+
+    criterion = contrastive_loss
+
+    def battery(x):
+        return _battery_losses(attr_losses, spec, predictors, x, num_mini, remat, arrangement,
+                               criterion)
+
+    if attr_losses and battery_graph.engages(images, dtype, remat, arrangement):
+        extra = (tuple(map(id, attr_losses)), id(spec), id(predictors), num_mini, id(criterion))
+        return battery_graph.run(attr_losses, predictors, images, extra, battery)
+    tracing.count("battery_eager")
+    return battery(images)
+
+
+def _battery_losses(attr_losses, spec, predictors, images, num_mini, remat, arrangement,
+                    criterion):
+    """:func:`_attr_losses_for_batch` on images of the battery's dtype,
+    eagerly, with ``criterion`` as the spec-driven contrastive loss."""
     n_rows = collectives.global_batch(images.shape[0])[0]
     mb = n_rows // num_mini
 
@@ -349,7 +376,7 @@ def _attr_losses_for_batch(
                     arrangement.not_same_pair_masks[al.group])
                 continue
             same, not_same = zip(*(same_not_same_split(spec, f, al.group) for f in chunk))
-            loss_al = loss_al + contrastive_loss(al.cfg, same, not_same, al.dist_fn)
+            loss_al = loss_al + criterion(al.cfg, same, not_same, al.dist_fn)
         return loss_al / num_mini
 
     def run(fn, *args):

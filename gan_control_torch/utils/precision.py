@@ -59,6 +59,13 @@ def _tf32() -> tuple[bool, bool]:
     return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
 
 
+def tf32_setting() -> tuple:
+    """What decides how an f32 battery multiplies at a call: the process's
+    TF32 flags and the environment's predictor precision (part of the key
+    of a captured battery, ``losses/battery_graph.py``)."""
+    return _tf32() + (os.environ.get(ENV_VAR),)
+
+
 def _set_tf32(flags: bool | tuple[bool, bool]) -> None:
     if isinstance(flags, bool):
         flags = (flags, flags)
